@@ -10,8 +10,12 @@ Phases, each printing one line on stdout:
 1. ``build``: compiles the CUDA kernels from ``dgsqp_torch/ops/csrc`` with ``nvcc`` and
    prints the card's name and power limit (``nvidia-smi``).
 2. ``kernels``: holds each kernel against its plain PyTorch version on the card, in
-   float32 and float64, at every shape of the main path plus one odd size, and times
-   the kernel, the plain version and the library call that computes the same function.
+   float32 and float64, at every shape of the main path, at the shapes that reach the
+   other branches of the kernels (an odd size, n = 150, right-hand-side counts on each
+   side of the switch between the two ``cho_solve`` kernels and off the tile width) and
+   on a batch with one matrix that is not positive definite; and times the kernel (device
+   time from a replayed CUDA graph, and the time per call of a loop of eager calls), the
+   plain version and the library call that computes the same function.
 3. ``parity``: one round of ``evaluate`` + convexified QP on 16 games of the seed-0
    bench batch, the port on the card in float32 against the port on the CPU in float64.
 4. ``main_path``: the bench problem (two-agent chicane duel, N=25, theta=45 deg, batch
@@ -68,6 +72,20 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, launches: int = 20, reps: int = 10) -> float:
+    """Device time of one launch of ``fn``: ``launches`` of them captured into a CUDA
+    graph and replayed, so that the host's time to issue a launch (tens of microseconds
+    through a Python wrapper, more than a fast kernel takes) is not in the number."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return time_ms(graph.replay, reps) / launches
+
+
 def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
@@ -94,6 +112,11 @@ def phase_build():
     card = gpu_name_and_limit()
     print(card, flush=True)
     emit({'phase': 'build', 'seconds': round(seconds, 3), 'card': card, 'ptxas': ptxas})
+    spilled = [ln for lines in ptxas.values() for ln in lines
+               if 'spill' in ln and not ln.startswith('0 bytes stack frame, 0 bytes spill stores, '
+                                                      '0 bytes spill loads')]
+    if spilled:
+        raise AssertionError(f'ptxas reports register spills: {spilled}')
     return card
 
 
@@ -112,13 +135,38 @@ def bound(kind, B, n, k, dtype):
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops else 'operations')
 
 
+def check_non_pd(dtype, device, gen, B=8, n=100, bad=3):
+    """A batch in which matrix ``bad`` is not positive definite: its factor and solution
+    turn non-finite, nothing raises, and every other matrix matches the plain version."""
+    import torch
+    from dgsqp_torch.ops import linalg
+    dname = str(dtype).split('.')[-1]
+    A = spd_batch(B, n, dtype, device, gen)
+    A[bad] = -A[bad]
+    b = torch.randn(B, n, generator=gen, device=device, dtype=dtype)
+    L, L_ref = linalg.cholesky(A), linalg.cholesky_plain(A)
+    x, x_ref = linalg.cho_solve(L, b), linalg.cho_solve_plain(L_ref, b)
+    good = [i for i in range(B) if i != bad]
+    errs = {'chol': rel_err(L[good].double(), L_ref[good].double()),
+            'cho_solve': rel_err(x[good].double(), x_ref[good].double())}
+    if torch.isfinite(L[bad]).all() or torch.isfinite(x[bad]).all():
+        raise AssertionError(f'non-PD matrix gave a finite factor or solution ({dname})')
+    if not all(torch.isfinite(t[good]).all() for t in (L, x)) \
+            or not all(e <= KERNEL_RTOL[dname] for e in errs.values()):
+        raise AssertionError(f'a non-PD matrix disturbed its neighbours ({dname}): {errs}')
+    return dict(kernel='non_pd', dtype=dname, B=B, n=n, bad=bad, rel_err=errs)
+
+
 def phase_kernels(device='cuda', shapes=None, time_it=True):
     """Kernel against plain version at the main-path shapes; returns per-shape rows."""
     import torch
     from dgsqp_torch.ops import linalg
     gen = torch.Generator(device=device).manual_seed(0)
-    shapes = shapes or {'chol': [(256, 100, 0), (256, 64, 0), (5, 37, 0)],
-                        'cho_solve': [(256, 100, 1), (256, 100, 64), (256, 64, 1), (5, 37, 3)]}
+    shapes = shapes or {
+        'chol': [(256, 100, 0), (256, 64, 0), (5, 37, 0), (64, 150, 0)],
+        'cho_solve': [(256, 100, 1), (256, 100, 64), (256, 64, 1), (5, 37, 3), (256, 100, 8),
+                      (256, 100, linalg.WARP_PATH_MAX_K), (256, 100, linalg.WARP_PATH_MAX_K + 1),
+                      (256, 100, 33), (5, 37, 33), (64, 150, 1), (64, 150, 64)]}
     rows = []
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split('.')[-1]
@@ -151,17 +199,21 @@ def phase_kernels(device='cuda', shapes=None, time_it=True):
                                          f'{err:.3e} > {KERNEL_RTOL[dname]:.0e}')
                 row = dict(kernel=kind, dtype=dname, B=B, n=n, k=k, rel_err=err,
                            max_abs_err=abs_err, tol=KERNEL_RTOL[dname], cond=COND)
+                if kind == 'cho_solve':
+                    row['path'] = linalg.cho_solve_plan(n, k, A.element_size())[0]
                 if time_it:
-                    row['ms'] = time_ms(kern, 50)
+                    row['ms'] = graph_ms(kern)
+                    row['eager_ms'] = time_ms(kern, 50)
                     row['plain_ms'] = time_ms(plain, 3)
                     row['library_ms'] = time_ms(lib, 20)
                     row['bound_ms'], row['bound_by'] = bound(kind, B, n, k, dname)
                 rows.append(row)
+        rows.append(check_non_pd(dtype, device, gen))
     emit({'phase': 'kernels', 'kernels': ['chol', 'cho_solve'],
           'launches_in_this_phase': {'chol': linalg.cholesky.launches,
                                      'cho_solve': linalg.cho_solve.launches},
           'shapes': rows})
-    return rows
+    return [r for r in rows if r['kernel'] != 'non_pd']
 
 
 def phase_parity(sc, sol_dev, sol_cpu, batch, n_games=16):
@@ -205,6 +257,7 @@ def phase_main_path(sol, batch, chunk=4):
 
     linalg.cholesky.launches = 0
     linalg.cho_solve.launches = 0
+    attr_sets = linalg.cholesky.attr_sets + linalg.cho_solve.attr_sets
     t0 = time.time()
     res = sol.solve_batch_chunked(u0, l0, x0, up, chunk_iters=chunk, compact=False)
     sync()
@@ -240,6 +293,8 @@ def phase_main_path(sol, batch, chunk=4):
         'chunks': len(chunks), 'running_after_chunk': [c['running'] for c in chunks],
         'chunk_wall_s': [c['wall_s'] for c in chunks],
         'launches': launches,
+        'attr_sets_in_this_solve': (linalg.cholesky.attr_sets + linalg.cho_solve.attr_sets
+                                    - attr_sets),
     }
     emit(line)
     finite = all(bool(torch.isfinite(t).all()) for t in (res.u, res.l, res.stat,

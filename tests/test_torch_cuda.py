@@ -41,3 +41,37 @@ def test_cuda_kernel_rejects_oversized_matrix():
     A = torch.eye(200, dtype=torch.float64, device='cuda')[None]
     with pytest.raises(ValueError):
         linalg.cholesky(A)
+
+
+@pytest.mark.cuda
+def test_shared_memory_attribute_is_set_once_per_instantiation():
+    """1000 launches of each kernel at one size raise its shared-memory limit at most
+    once (once exactly when this is the size's first use in the process)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    A = (torch.eye(100, device='cuda') * 4.0).expand(4, 100, 100).contiguous()
+    b1 = torch.ones(4, 100, device='cuda')
+    b64 = torch.ones(4, 100, 64, device='cuda')
+    L = linalg.cholesky(A)
+    linalg.cho_solve(L, b1)
+    linalg.cho_solve(L, b64)
+    n_sets = (linalg.cholesky.attr_sets, linalg.cho_solve.attr_sets)
+    n_launch = (linalg.cholesky.launches, linalg.cho_solve.launches)
+    assert n_sets[0] >= 1 and n_sets[1] >= 2      # chol; warp and column kernels
+    for _ in range(1000):
+        linalg.cholesky(A)
+        linalg.cho_solve(L, b1)
+        x = linalg.cho_solve(L, b64)
+    torch.cuda.synchronize()
+    assert (linalg.cholesky.attr_sets, linalg.cho_solve.attr_sets) == n_sets
+    assert (linalg.cholesky.launches, linalg.cho_solve.launches) \
+        == (n_launch[0] + 1000, n_launch[1] + 2000)
+    assert torch.equal(x, torch.full_like(b64, 0.25))
+    # a smaller matrix needs no new limit; a larger one raises it once
+    small = (torch.eye(24, device='cuda') * 4.0).expand(4, 24, 24).contiguous()
+    big = (torch.eye(120, device='cuda') * 4.0).expand(4, 120, 120).contiguous()
+    linalg.cholesky(small)
+    assert linalg.cholesky.attr_sets == n_sets[0]
+    linalg.cholesky(big)
+    linalg.cholesky(big)
+    assert linalg.cholesky.attr_sets == n_sets[0] + 1
