@@ -10,19 +10,30 @@ Phases, each printing one line on stdout:
 1. ``build``: compiles the CUDA kernels from ``dgsqp_torch/ops/csrc`` with ``nvcc`` and
    prints the card's name and power limit (``nvidia-smi``).
 2. ``kernels``: holds each kernel against its plain PyTorch version on the card, in
-   float32 and float64, at every shape of the main path, at the shapes that reach the
-   other branches of the kernels (an odd size, n = 150, right-hand-side counts on each
-   side of the switch between the two ``cho_solve`` kernels and off the tile width) and
-   on a batch with one matrix that is not positive definite; and times the kernel (device
-   time from a replayed CUDA graph, and the time per call of a loop of eager calls), the
-   plain version and the library call that computes the same function.
+   float32 and float64, at every shape of the paths below (the bench problem's n = 100
+   with its 64-row polish, the agents study's n = 36 with its 48-row polish), at the
+   shapes that reach the other branches of the kernels (an odd size, n = 150,
+   right-hand-side counts on each side of the switch between the two ``cho_solve``
+   kernels and off the tile width) and on a batch with one matrix that is not positive
+   definite; and times the kernel (device time from a replayed CUDA graph, and the time
+   per call of a loop of eager calls), the plain version and the library call that
+   computes the same function.
 3. ``parity``: one round of ``evaluate`` + convexified QP on 16 games of the seed-0
    bench batch, the port on the card in float32 against the port on the CPU in float64.
 4. ``main_path``: the bench problem (two-agent chicane duel, N=25, theta=45 deg, batch
    256, seed 0, float32, DGSQP v1) solved with ``solve_batch_chunked(chunk_iters=4,
-   compact=False)``, once to warm up and once timed, with the kernels' launch counts.
+   compact=False)``, after a warm-up of one chunk on 16 games, with the kernels' launch
+   counts.
+5. ``v2_path``: the same batch solved by DGSQP v2 (``build_bench_solver(solver_name=
+   'v2')``) with ``solve_batch_chunked(chunk_iters=4)``, compaction on, after the same
+   warm-up, with the launch counts, the m-step counts and the chunks' bucket sizes.
+6. ``mc_study``: ``run_mc_study`` on the agents scenario (M=3, N=6, n=36 decisions), 16
+   samples, seed 0, DGSQP v2, float32, with the launch counts and ``analyze_results``.
 
-Then one JSON line of per-kernel numbers, and last ``{"ok": true, "device": ...}``.
+The launch counts are set to 0 just before each of the three paths and read just after;
+each path fails if a kernel was not launched in it.  Then one JSON line of per-kernel
+numbers (``launches`` is the count of ``v2_path``, ``launches_by_path`` has all three),
+and last ``{"ok": true, "device": ...}``.
 Any failed check raises and the script exits non-zero; without a card it exits
 non-zero before printing any result.
 """
@@ -45,6 +56,15 @@ KERNEL_RTOL = {'float32': 1e-4, 'float64': 1e-10}
 DERIV_RTOL = 1e-4
 STEP_RTOL = 2e-2
 CONV_ABS_MIN, CONV_ANY_MIN = 0.45, 0.70
+# DGSQP v2 on the same batch: the JAX package's float32 record is 0.555 conv_abs with no
+# conv_rel exit, so both limits are 0.45
+V2_CONV_ABS_MIN, V2_CONV_ANY_MIN = 0.45, 0.45
+WARMUP_GAMES = 16
+# the agents study of the mc_study phase: the bench's operating point for the exact game
+# (small constant regularization) with a short budget
+MC_AGENTS, MC_HORIZON, MC_SAMPLES = 3, 6, 16
+MC_PARAMS = dict(sqp_iters=30, p_tol=1e-3, d_tol=1e-3, reg=1e-3, reg_decay=1.0,
+                 nms_frequency=5, nms_memory_size=5, stall_its=10, line_search_iters=20)
 
 
 def emit(obj):
@@ -163,10 +183,12 @@ def phase_kernels(device='cuda', shapes=None, time_it=True):
     from dgsqp_torch.ops import linalg
     gen = torch.Generator(device=device).manual_seed(0)
     shapes = shapes or {
-        'chol': [(256, 100, 0), (256, 64, 0), (5, 37, 0), (64, 150, 0)],
+        'chol': [(256, 100, 0), (256, 64, 0), (5, 37, 0), (64, 150, 0),
+                 (16, 36, 0), (16, 48, 0)],
         'cho_solve': [(256, 100, 1), (256, 100, 64), (256, 64, 1), (5, 37, 3), (256, 100, 8),
                       (256, 100, linalg.WARP_PATH_MAX_K), (256, 100, linalg.WARP_PATH_MAX_K + 1),
-                      (256, 100, 33), (5, 37, 33), (64, 150, 1), (64, 150, 64)]}
+                      (256, 100, 33), (5, 37, 33), (64, 150, 1), (64, 150, 64),
+                      (16, 36, 1), (16, 36, 36), (16, 36, 48), (16, 48, 1)]}
     rows = []
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split('.')[-1]
@@ -241,28 +263,55 @@ def phase_parity(sc, sol_dev, sol_cpu, batch, n_games=16):
     return diffs
 
 
-def phase_main_path(sol, batch, chunk=4):
+def reset_launches():
+    from dgsqp_torch.ops import linalg
+    linalg.cholesky.launches = 0
+    linalg.cho_solve.launches = 0
+
+
+def read_launches():
+    from dgsqp_torch.ops import linalg
+    return {'chol': linalg.cholesky.launches, 'cho_solve': linalg.cho_solve.launches}
+
+
+def phase_bench_path(phase, solver_name, sol, batch, conv_min, conv_any_min, chunk=4, **kw):
+    """Solve the bench batch with ``sol.solve_batch_chunked(chunk_iters=chunk, **kw)``
+    after a warm-up of one chunk on a few games, print the bench's fields and check the
+    result.  Every result must be finite; for v2 a game that diverged is exempt (it stops
+    with whatever iterate it had)."""
     import numpy as np
     import torch
     from dgsqp_torch.ops import linalg
-    from dgsqp_torch.solvers.dgsqp import CONV_ABS, CONV_REL, RUNNING, STATUS_MSG
+    from dgsqp_torch.solvers.dgsqp import CONV_ABS, CONV_REL, DIVERGED, RUNNING, STATUS_MSG
     u0, l0, x0, up = batch
     B = u0.shape[0]
-    sync = torch.cuda.synchronize if u0.is_cuda else (lambda: None)
 
     t0 = time.time()
-    sol.solve_batch_chunked(u0, l0, x0, up, chunk_iters=chunk, compact=False)
-    sync()
-    first_s = time.time() - t0
+    sol.solve_batch_chunked(*(a[:WARMUP_GAMES] for a in batch), chunk_iters=chunk,
+                            max_chunks=1, **kw)
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
 
-    linalg.cholesky.launches = 0
-    linalg.cho_solve.launches = 0
+    # count the batched QP solves (one per round) beside the kernels' launches
+    qp_calls = [0]
+    inner_qp = sol._qp
+
+    def counted_qp(*a, **k):
+        qp_calls[0] += 1
+        return inner_qp(*a, **k)
+
+    sol._qp = counted_qp
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     attr_sets = linalg.cholesky.attr_sets + linalg.cho_solve.attr_sets
     t0 = time.time()
-    res = sol.solve_batch_chunked(u0, l0, x0, up, chunk_iters=chunk, compact=False)
-    sync()
+    try:
+        res = sol.solve_batch_chunked(u0, l0, x0, up, chunk_iters=chunk, **kw)
+    finally:
+        del sol._qp
+    torch.cuda.synchronize()
     dur = time.time() - t0
-    launches = {'chol': linalg.cholesky.launches, 'cho_solve': linalg.cho_solve.launches}
+    launches = read_launches()
 
     status = res.status.cpu().numpy()
     iters = res.iters.cpu().numpy()
@@ -276,12 +325,12 @@ def phase_main_path(sol, batch, chunk=4):
     hist = {STATUS_MSG.get(int(s), str(s)): int((status == s).sum()) for s in np.unique(status)}
     chunks = sol.last_chunk_history
     line = {
-        'phase': 'main_path',
+        'phase': phase,
         'metric': 'chicane_2agent_solves_per_s',
         'value': B / dur,
         'unit': 'solves/s',
         'solve_s': dur,
-        'first_solve_s': first_s,
+        'warmup_s': warmup_s,
         'convergence_rate': conv,
         'convergence_rate_incl_rel': conv_any,
         'convergence_rate_ref_abs': conv_ref_abs,
@@ -289,32 +338,77 @@ def phase_main_path(sol, batch, chunk=4):
         'status_counts': hist,
         'iters_p50': float(np.median(iters)), 'iters_max': int(iters.max()),
         'stat_p50': float(np.median(stat_f)), 'stat_p90': float(np.percentile(stat_f, 90)),
-        'batch': int(B), 'horizon': sol.N, 'solver': 'v1', 'dtype': str(sol.dtype),
+        'batch': int(B), 'horizon': sol.N, 'solver': solver_name, 'dtype': str(sol.dtype),
         'chunks': len(chunks), 'running_after_chunk': [c['running'] for c in chunks],
+        'chunk_batch': [c['batch'] for c in chunks],
         'chunk_wall_s': [c['wall_s'] for c in chunks],
-        'launches': launches,
+        'launches': launches, 'qp_calls': qp_calls[0],
+        'peak_device_mib': torch.cuda.max_memory_allocated() / 2 ** 20,
         'attr_sets_in_this_solve': (linalg.cholesky.attr_sets + linalg.cho_solve.attr_sets
                                     - attr_sets),
+        # one digit per game, in batch order: the game's status code
+        'status_string': ''.join(str(int(s)) for s in status),
     }
+    if solver_name == 'v2':
+        m_its = sol.last_m_iters.cpu().numpy()
+        line['m_steps_p50'] = float(np.median(m_its))
+        line['m_steps_max'] = int(m_its.max())
     emit(line)
-    finite = all(bool(torch.isfinite(t).all()) for t in (res.u, res.l, res.stat,
-                                                         res.p_feas, res.comp))
+    alive = torch.as_tensor((status != DIVERGED) | (solver_name != 'v2'), device=res.u.device)
+    finite = all(bool(torch.isfinite(t[alive]).all()) for t in (res.u, res.l, res.stat,
+                                                                res.p_feas, res.comp))
     problems = []
     if not all(v > 0 for v in launches.values()):
-        problems.append(f'a kernel was not launched on the main path: {launches}')
+        problems.append(f'a kernel was not launched on {phase}: {launches}')
     if (status == RUNNING).any():
         problems.append('games still running')
     if not finite:
         problems.append('non-finite results')
-    if conv < CONV_ABS_MIN or conv_any < CONV_ANY_MIN:
+    if conv < conv_min or conv_any < conv_any_min:
         problems.append(f'convergence {conv:.3f}/{conv_any:.3f} below '
-                        f'{CONV_ABS_MIN}/{CONV_ANY_MIN}')
+                        f'{conv_min}/{conv_any_min}')
     if problems:
-        raise AssertionError('; '.join(problems))
+        raise AssertionError(f'{phase}: ' + '; '.join(problems))
     return line
 
 
-def kernel_summary(rows, launches):
+def phase_mc_study():
+    """The Monte-Carlo entry point at a small depth: the agents study with DGSQP v2."""
+    import torch
+    from dgsqp_torch.harness.mc_study import analyze_results, run_mc_study
+    from dgsqp_torch.harness.scenarios import build_agents_scenario
+    from dgsqp_torch.solvers.dgsqp import RUNNING
+    from dgsqp_torch.solvers.dgsqp_v2 import DGSQPV2
+    from dgsqp_torch.solvers.solver_types import DGSQPV2Params
+    sc = build_agents_scenario(M=MC_AGENTS, N=MC_HORIZON)
+    params = DGSQPV2Params(N=sc.N, dt=sc.dt, qp_tol=3e-7, **MC_PARAMS)
+    reset_launches()
+    t0 = time.time()
+    res = run_mc_study(sc, solver_params=params, num_samples=MC_SAMPLES, seed=0,
+                       solver_cls=DGSQPV2, dtype=torch.float32)
+    seconds = time.time() - t0
+    launches = read_launches()
+    stats = analyze_results(res)
+    n_dec = int(res.u_sol.shape[1])
+    emit({'phase': 'mc_study', 'scenario': sc.name, 'n_dec': n_dec, 'seconds': seconds,
+          'launches': launches, 'analyze_results': stats,
+          'status_string': ''.join(str(int(s)) for s in res.statuses)})
+    problems = []
+    if n_dec != 2 * MC_AGENTS * MC_HORIZON:
+        problems.append(f'the study ran at n = {n_dec}')
+    if not all(v > 0 for v in launches.values()):
+        problems.append(f'a kernel was not launched in the study: {launches}')
+    if (res.statuses == RUNNING).any():
+        problems.append('games still running')
+    prov = res.provenance
+    if prov['device_name'] != torch.cuda.get_device_name(0) or prov['platform'] != 'cuda':
+        problems.append(f'provenance does not name the card: {prov}')
+    if problems:
+        raise AssertionError('mc_study: ' + '; '.join(problems))
+    return launches
+
+
+def kernel_summary(rows, launches_by_path):
     """The per-kernel line: numbers at the main shape (float32), all shapes beside."""
     meta = {
         'chol': dict(source='dgsqp_torch/ops/csrc/chol.cu',
@@ -329,7 +423,9 @@ def kernel_summary(rows, launches):
         main = next(r for r in rows if r['kernel'] == name and r['dtype'] == 'float32'
                     and (r['B'], r['n'], r['k']) == m['main'])
         out.append({'name': name, 'route': 'cuda', 'source': m['source'],
-                    'replaces': m['replaces'], 'launches': launches[name],
+                    'replaces': m['replaces'],
+                    'launches': launches_by_path['v2_path'][name],
+                    'launches_by_path': {k: v[name] for k, v in launches_by_path.items()},
                     'max_abs_err': main['max_abs_err'], 'ms': main['ms'],
                     'plain_ms': main['plain_ms'], 'bound_ms': main['bound_ms'],
                     'bound_by': main['bound_by'], 'library_ms': main['library_ms'],
@@ -358,9 +454,16 @@ def main():
                                     device='cpu')
     batch = build_bench_batch(sc, sol, 256, seed=0)
     phase_parity(sc, sol, sol_cpu, batch)
-    line = phase_main_path(sol, batch)
+    launches = {}
+    launches['main_path'] = phase_bench_path('main_path', 'v1', sol, batch, CONV_ABS_MIN,
+                                             CONV_ANY_MIN, compact=False)['launches']
+    _, sol_v2 = build_bench_solver(horizon=25, solver_name='v2', scenario=sc,
+                                   dtype=torch.float32, device='cuda')
+    launches['v2_path'] = phase_bench_path('v2_path', 'v2', sol_v2, batch, V2_CONV_ABS_MIN,
+                                           V2_CONV_ANY_MIN)['launches']
+    launches['mc_study'] = phase_mc_study()
 
-    emit(kernel_summary(rows, line['launches']))
+    emit(kernel_summary(rows, launches))
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})
 

@@ -1,10 +1,11 @@
 """Vehicle dynamics models on tensors, ported from ``dgsqp_tpu/dynamics/models.py``.
 
-This slice carries the ``DynamicsModel`` base (continuous ODE, euler/rk
-discretisations, Jacobians by ``torch.func``) and the kinematic-bicycle-combined model
-of the chicane duel.  ``fc``/``fd`` take ``q`` of shape (..., n_q) and ``u`` of shape
-(..., n_u) with any matching leading batch shape, so one definition serves a single
-game, an explicit batch and ``torch.func`` transforms alike.
+It carries the ``DynamicsModel`` base (continuous ODE, euler/rk discretisations,
+Jacobians by ``torch.func``, the host-side marshalling hooks), the single integrator and
+the kinematic-bicycle-combined model of the racing scenarios.  ``fc``/``fd`` take ``q`` of
+shape (..., n_q) and ``u`` of shape (..., n_u) with any matching leading batch shape, so
+one definition serves a single game, an explicit batch and ``torch.func`` transforms
+alike.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 from torch.func import jacfwd
 
 from dgsqp_torch.dynamics.model_types import DynamicsConfig, KinematicBicycleConfig
-from dgsqp_torch.types import VehicleState
+from dgsqp_torch.types import VehiclePrediction, VehicleState
 from dgsqp_torch.utils.math import hard_abs, smooth_sign
 
 
@@ -91,6 +92,51 @@ class DynamicsModel:
     def state2q(self, state: VehicleState) -> np.ndarray:
         return self.state2qu(state)[0]
 
+    @abstractmethod
+    def qu2state(self, state: VehicleState, q: Optional[np.ndarray] = None,
+                 u: Optional[np.ndarray] = None):
+        ...
+
+    def qu2prediction(self, prediction: Optional[VehiclePrediction],
+                      q: Optional[np.ndarray] = None, u: Optional[np.ndarray] = None):
+        if prediction is None:
+            prediction = VehiclePrediction()
+        if q is not None:
+            for name, col in self._pred_q_fields():
+                setattr(prediction, name, np.asarray(q[:, col]))
+        if u is not None:
+            prediction.u_a = np.asarray(u[:, 0])
+            if self.n_u > 1:
+                prediction.u_steer = np.asarray(u[:, 1])
+            if self.n_u > 2:
+                prediction.u_ds = np.asarray(u[:, 2])
+        return prediction
+
+    def _pred_q_fields(self):
+        """(prediction field name, q column) pairs; overridden per model."""
+        return []
+
+
+class IntegratorModel(DynamicsModel):
+    """Single integrator: q=[v], u=[a]."""
+
+    n_q, n_u = 1, 1
+
+    def fc(self, q, u):
+        return u[..., 0:1]
+
+    def state2qu(self, state):
+        return np.array([state.v.v_long]), np.array([state.u.u_a])
+
+    def qu2state(self, state, q=None, u=None):
+        if q is not None:
+            state.v.v_long = float(q[0])
+        if u is not None:
+            state.u.u_a = float(u[0])
+
+    def _pred_q_fields(self):
+        return [('v_long', 0)]
+
 
 class _KinematicBicycleBase(DynamicsModel):
     def __init__(self, t0, config: KinematicBicycleConfig = None, track=None):
@@ -143,3 +189,17 @@ class KinematicBicycleCombined(_KinematicBicycleBase):
         return (np.array([state.x.x, state.x.y, state.v.v_long,
                           state.p.e_psi, state.p.s, state.p.x_tran]),
                 np.array([state.u.u_a, state.u.u_steer]))
+
+    def qu2state(self, state, q=None, u=None):
+        if q is not None:
+            state.x.x, state.x.y, state.v.v_long = float(q[0]), float(q[1]), float(q[2])
+            state.p.e_psi, state.p.s, state.p.x_tran = float(q[3]), float(q[4]), float(q[5])
+            if u is not None:
+                state.w.w_psi = float(q[2] / self.L_r * np.sin(
+                    np.arctan(np.tan(u[1]) * self.L_f / (self.L_f + self.L_r))))
+                state.v.v_tran = state.w.w_psi * self.L_r
+        if u is not None:
+            state.u.u_a, state.u.u_steer = float(u[0]), float(u[1])
+
+    def _pred_q_fields(self):
+        return [('x', 0), ('y', 1), ('v_long', 2), ('e_psi', 3), ('s', 4), ('x_tran', 5)]

@@ -5,14 +5,14 @@ map applies each agent's ``fd`` to its own block (batch-agnostic, like the model
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from dgsqp_torch.dynamics.model_types import MultiAgentModelConfig
 from dgsqp_torch.dynamics.models import DynamicsModel
-from dgsqp_torch.types import VehicleState
+from dgsqp_torch.types import VehiclePrediction, VehicleState
 
 
 class MultiAgentDynamicsModel:
@@ -60,3 +60,20 @@ class MultiAgentDynamicsModel:
 
     def state2q(self, states: List[VehicleState]) -> np.ndarray:
         return np.concatenate([m.state2q(s) for m, s in zip(self.dynamics_models, states)])
+
+    def qu2state(self, states: List[VehicleState], q: Optional[np.ndarray] = None,
+                 u: Optional[np.ndarray] = None):
+        for a, m in enumerate(self.dynamics_models):
+            qa = q[self.q_offsets[a]:self.q_offsets[a + 1]] if q is not None else None
+            ua = u[self.u_offsets[a]:self.u_offsets[a + 1]] if u is not None else None
+            m.qu2state(states[a], qa, ua)
+
+    def qu2prediction(self, predictions: List[Optional[VehiclePrediction]],
+                      q: Optional[np.ndarray] = None, u: Optional[np.ndarray] = None):
+        out = []
+        for a, m in enumerate(self.dynamics_models):
+            qa = q[:, self.q_offsets[a]:self.q_offsets[a + 1]] if q is not None else None
+            ua = u[:, self.u_offsets[a]:self.u_offsets[a + 1]] if u is not None else None
+            pred = predictions[a] if predictions is not None else None
+            out.append(m.qu2prediction(pred, qa, ua))
+        return out

@@ -1,5 +1,6 @@
-"""Monte-Carlo initial-condition sampler with rejection, ported from
-``sample_duel_initial_conditions`` in ``dgsqp_tpu/harness/samplers.py``.
+"""Monte-Carlo initial-condition samplers with rejection, ported from
+``sample_duel_initial_conditions`` and ``sample_agents_initial_conditions`` in
+``dgsqp_tpu/harness/samplers.py``.
 
 Candidates are drawn with numpy's ``default_rng(seed)`` exactly as in the JAX package
 (so the same seed draws the same candidates), placed on the track, warm-started as one
@@ -10,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dgsqp_torch.harness.warm_start import duel_warm_start
+from dgsqp_torch.harness.warm_start import duel_warm_start, pid_warm_start
 
 
 def sample_duel_initial_conditions(scenario, num_samples: int, seed: int = 0,
@@ -70,5 +71,54 @@ def sample_duel_initial_conditions(scenario, num_samples: int, seed: int = 0,
     if need > 0:
         raise RuntimeError(f'Sampler failed to draw {num_samples} valid ICs '
                            f'({need} missing after {max_rounds} rounds)')
+    return (np.concatenate(xs), np.concatenate(us),
+            np.concatenate(vrs), np.concatenate(lrs))
+
+
+def sample_agents_initial_conditions(scenario, num_samples: int, seed: int = 0,
+                                     max_rounds: int = 400, dtype=torch.float32,
+                                     device='cuda'):
+    """Sampler of the M-agent scaling study: every agent placed independently on the
+    first track segment, PID warm start, pairwise collision rejection.  Returns numpy
+    arrays x0 (B, 6M), u_ws (B, N, 2M), v_ref (B, M), lat_ref (B, M)."""
+    track = scenario.track
+    M = scenario.joint_model.n_a
+    first_seg_len = float(track.cl_segs[0, 0])
+    hw = scenario.half_width
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    xs, us, vrs, lrs = [], [], [], []
+    need = num_samples
+    # the candidate batch is fixed, so every round draws the same count from the
+    # generator whatever is still missing
+    B = max(8 * num_samples, 64)
+    for _ in range(max_rounds):
+        s = np.maximum(0.1, rng.random((B, M)) * first_seg_len)
+        ey = rng.random((B, M)) * hw * 2 - hw
+        v = rng.random((B, M)) + 2
+
+        x0 = np.zeros((B, 6 * M))
+        for a in range(M):
+            xyp = track.local_to_global(t(np.stack([s[:, a], ey[:, a], np.zeros(B)], axis=-1)))
+            xyp = xyp.cpu().numpy().astype(np.float64)
+            x0[:, 6 * a:6 * (a + 1)] = np.stack(
+                [xyp[:, 0], xyp[:, 1], v[:, a], np.zeros(B), s[:, a], ey[:, a]], axis=-1)
+
+        u_ws, _, collision = pid_warm_start(scenario, t(x0), t(v), t(ey))
+        ok = ~collision.cpu().numpy()
+        idx = np.where(ok)[0][:need]
+        if idx.size:
+            xs.append(x0[idx])
+            us.append(u_ws.cpu().numpy()[idx])
+            vrs.append(v[idx])
+            lrs.append(ey[idx])
+            need -= idx.size
+        if need == 0:
+            break
+    if need > 0:
+        raise RuntimeError(f'Agents sampler failed: {need} missing after {max_rounds} rounds')
     return (np.concatenate(xs), np.concatenate(us),
             np.concatenate(vrs), np.concatenate(lrs))

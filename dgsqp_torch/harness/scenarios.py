@@ -1,5 +1,6 @@
 """Benchmark scenario factories, ported from ``dgsqp_tpu/harness/scenarios.py``
-(``Scenario``, ``build_racing_duel``, ``build_chicane_scenario``).
+(``Scenario``, ``build_racing_duel``, ``build_chicane_scenario``,
+``build_curve_scenario``, ``build_agents_scenario``).
 
 Costs and constraints are callables on tensors with any leading batch shape (the last
 dimension holds the state or input), so the game evaluates a group of stages in one call.
@@ -13,7 +14,7 @@ import torch
 
 from dgsqp_torch.dynamics import (KinematicBicycleCombined, KinematicBicycleConfig,
                                   MultiAgentDynamicsModel, MultiAgentModelConfig)
-from dgsqp_torch.tracks import ChicaneTrack
+from dgsqp_torch.tracks import ChicaneTrack, CurveTrack
 from dgsqp_torch.types import (BodyAngularVelocity, BodyLinearVelocity, OrientationEuler,
                                ParametricPose, Position, VehicleActuation, VehicleState)
 
@@ -174,3 +175,89 @@ def build_chicane_scenario(N: int = 25, theta_deg: float = 45.0, dt: float = 0.1
                          width=half_width * 2, slack=0.8, mirror=False)
     return build_racing_duel(track, N=N, dt=dt, half_width=half_width,
                              name=f'chicane_t{int(theta_deg)}_N{N}', **kw)
+
+
+def build_curve_scenario(N: int = 25, theta_deg: float = 90.0, dt: float = 0.1,
+                         half_width: float = 1.0, **kw) -> Scenario:
+    """The two-agent duel on a curved track."""
+    track = CurveTrack(enter_straight_length=1, curve_length=8,
+                       curve_swept_angle=theta_deg * np.pi / 180, exit_straight_length=5,
+                       width=half_width * 2, slack=0.8, ccw=True)
+    return build_racing_duel(track, N=N, dt=dt, half_width=half_width,
+                             name=f'curve_t{int(theta_deg)}_N{N}', **kw)
+
+
+def build_agents_scenario(M: int = 3, N: int = 25, theta_deg: float = 90.0,
+                          dt: float = 0.1, half_width: float = 1.0,
+                          comp_weights=(10.0, 5.0), obs_r: float = 0.4,
+                          u_a_max: float = 2.1, u_steer_max: float = 0.436,
+                          u_a_rate: float = 10.0, u_steer_rate: float = np.pi) -> Scenario:
+    """Agent-count scaling study: M kinematic-bicycle-combined agents on a curved track.
+
+    Per-agent terminal cost: own progress + arctan competitive terms against every other
+    agent; shared constraints: pairwise collision avoidance with radius ``obs_r`` each.
+    """
+    track = CurveTrack(enter_straight_length=1, curve_length=8,
+                       curve_swept_angle=theta_deg * np.pi / 180, exit_straight_length=5,
+                       width=half_width * 2, slack=0.8, ccw=True)
+    cfg = KinematicBicycleConfig(dt=dt, model_name='kinematic_bicycle_cl', noise=False,
+                                 discretization_method='euler',
+                                 wheel_dist_front=0.13, wheel_dist_rear=0.13,
+                                 drag_coefficient=0.1, slip_coefficient=0.1)
+    models = [KinematicBicycleCombined(0.0, KinematicBicycleConfig(**{**cfg.__dict__}),
+                                       track=track) for _ in range(M)]
+    joint = MultiAgentDynamicsModel(0.0, models, MultiAgentModelConfig(dt=dt))
+
+    n_qa = 6
+    s_idx = [4 + n_qa * a for a in range(M)]
+
+    def make_cost(a):
+        def stage(x, u, um):
+            return 0.5 * (u[..., 0] ** 2 + u[..., 1] ** 2) \
+                + 0.5 * ((u[..., 0] - um[..., 0]) ** 2 + (u[..., 1] - um[..., 1]) ** 2)
+
+        def term(x):
+            c = -comp_weights[0] * x[..., s_idx[a]]
+            for b in range(M):
+                if b != a:
+                    c = c + comp_weights[1] * torch.atan(x[..., s_idx[b]] - x[..., s_idx[a]])
+            return c
+        return (stage, term)
+
+    costs = [make_cost(a) for a in range(M)]
+
+    def rate_constr(x, u, um):
+        du0 = u[..., 0] - um[..., 0]
+        du1 = u[..., 1] - um[..., 1]
+        return torch.stack([du0 - dt * u_a_rate,
+                            dt * (-u_a_rate) - du0,
+                            du1 - dt * u_steer_rate,
+                            dt * (-u_steer_rate) - du1], dim=-1)
+
+    agent_constraints = [[rate_constr] * N + [None] for _ in range(M)]
+
+    obs_d = 2 * obs_r
+
+    def obs_avoid(x):
+        rows = []
+        for i in range(M):
+            for j in range(i + 1, M):
+                dxy = x[..., n_qa * i:n_qa * i + 2] - x[..., n_qa * j:n_qa * j + 2]
+                rows.append(obs_d ** 2 - torch.sum(dxy * dxy, dim=-1))
+        return torch.stack(rows, dim=-1)
+
+    obs_avoid_stage = lambda x, u, um: obs_avoid(x)
+    shared_constraints = [None] + [obs_avoid_stage] * (N - 1) + [lambda x: obs_avoid(x)]
+
+    ub = _vehicle_bound(half_width, u_a_max, u_steer_max)
+    bounds = {'ub': [ub.copy() for _ in range(M)],
+              'lb': [_neg(ub) for _ in range(M)]}
+
+    return Scenario(name=f'agents_M{M}_t{int(theta_deg)}_N{N}', track=track,
+                    joint_model=joint, costs=costs, agent_constraints=agent_constraints,
+                    shared_constraints=shared_constraints, bounds=bounds, N=N, dt=dt,
+                    obs_d=obs_d, half_width=half_width,
+                    input_ub=np.array([u_a_max, u_steer_max]),
+                    input_lb=np.array([-u_a_max, -u_steer_max]),
+                    input_rate_ub=np.array([u_a_rate, u_steer_rate]),
+                    input_rate_lb=np.array([-u_a_rate, -u_steer_rate]))

@@ -7,10 +7,16 @@ the caller) and never imports JAX, so both packages can compute on bit-identical
 * :func:`load_track_tables` installs a track's key-point table and cumulative-angle
   table (``RadiusArclengthTrack._kp`` / ``_cum_angle`` in the JAX package);
 * :func:`bench_batch` converts a bench batch ``(u0, l0, x0, up)``;
-* :func:`to_torch_tuple` converts a result NamedTuple (a ``QPSolution`` or an
-  ``SQPResult``) field by field into the port's NamedTuple of the same fields.
+* :func:`to_torch_tuple` converts a NamedTuple of arrays (a ``QPSolution``, an
+  ``SQPResult``, a solver carry such as ``_CarryV2``) field by field into the port's
+  NamedTuple of the same fields;
+* :func:`fields_to_numpy` gives the fields of a NamedTuple or dataclass of either
+  package (a carry, an ``MCResults``) as numpy arrays, for comparisons;
+* :func:`to_mc_results` converts an ``MCResults`` into the port's dataclass.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -40,3 +46,25 @@ def bench_batch(u0, l0, x0, up, dtype=torch.float64, device='cuda'):
 def to_torch_tuple(result, cls, dtype=torch.float64, device='cuda'):
     """A NamedTuple of arrays (``QPSolution``, ``SQPResult``) as ``cls`` of tensors."""
     return cls(*[to_tensor(getattr(result, f), dtype, device) for f in cls._fields])
+
+
+def fields_to_numpy(obj) -> dict:
+    """The fields of a NamedTuple or dataclass as a dict; tensors and arrays become
+    numpy arrays, everything else (strings, numbers, dicts) is passed through."""
+    names = obj._fields if hasattr(obj, '_fields') \
+        else [f.name for f in dataclasses.fields(obj)]
+    out = {}
+    for name in names:
+        v = getattr(obj, name)
+        if torch.is_tensor(v):
+            v = v.detach().cpu().numpy()
+        elif hasattr(v, 'shape'):
+            v = np.asarray(v)
+        out[name] = v
+    return out
+
+
+def to_mc_results(results, cls):
+    """An ``MCResults`` of the JAX package as the port's ``cls``, field by field."""
+    src = fields_to_numpy(results)
+    return cls(**{f.name: src[f.name] for f in dataclasses.fields(cls)})

@@ -8,7 +8,10 @@ convexified QP and one grid line search, and each game advances its own
 search flattened into modes.  The JAX version vmaps a per-game round under
 ``lax.while_loop``; here a round updates the whole batch at once and every game whose
 status is no longer RUNNING keeps its state verbatim (``torch.where`` on each carry
-field).  The nested machine, BFGS and the host ``solve``/``step`` API are not ported.
+field).  The host interface (``set_warm_start``/``solve``/``step``/``get_prediction``)
+runs the flat machine on a batch of one; DGSQP v2 shares it, and ``solve_batch_traced``,
+through ``_HostInterface``.  The nested machine and BFGS are not ported, so v1's own
+``solve_batch_traced``, which records the nested machine's iterations, raises.
 
 Status codes returned in ``SQPResult.status``:
     1 conv_abs_tol   2 conv_rel_tol   3 diverged   4 qp_fail   5 max_it   0 still-running
@@ -17,7 +20,8 @@ Status codes returned in ``SQPResult.status``:
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+import time
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -26,6 +30,7 @@ from dgsqp_torch.solvers.chunked import run_chunked_compacted
 from dgsqp_torch.solvers.game_problem import GameProblem
 from dgsqp_torch.solvers.qp import solve_qp
 from dgsqp_torch.solvers.solver_types import DGSQPParams
+from dgsqp_torch.types import VehiclePrediction, VehicleState
 from dgsqp_torch.utils.math import regularized_convexification
 
 (RUNNING, CONV_ABS, CONV_REL, DIVERGED, QP_FAIL, MAX_IT, TIME_LIMIT,
@@ -133,7 +138,119 @@ def _get_mu(du, l, dl, s, Q, q, G, g, merit_function: str):
     return torch.where(constr_vio > thresh, mu_pos, 0.0)
 
 
-class DGSQP:
+class _HostInterface:
+    """What DGSQP v1 and v2 share: the host interface around a batch-of-one solve
+    (``set_warm_start``/``step``/``get_prediction``; each solver has its own ``solve``)
+    and the per-round trace of a solver with a ``_make_body``/``_init_carry``/
+    ``_finalize`` surface."""
+
+    def _init_host_state(self):
+        self.q_pred = np.zeros((self.N + 1, self.n_q))
+        self.u_pred = np.zeros((self.N, self.n_u))
+        self.l_pred = np.zeros(self.n_c)
+        self.u_ws = np.zeros(self.N * self.n_u)
+        self.l_ws = None
+        self.u_prev = np.zeros(self.n_u)
+        self.state_input_predictions = [VehiclePrediction() for _ in range(self.M)]
+
+    def solve_batch_traced(self, u0, l0, x0, up, P=None, num_iters: Optional[int] = None,
+                           record_iterates: bool = False, record_conds: bool = False):
+        """Batched solve with a per-round trace, for a fixed ``num_iters`` rounds.
+
+        Returns ``(SQPResult, trace)`` where ``trace`` is a dict of (B, T) tensors:
+        ``status, it, p_feas, comp, stat, qp_solves, du_norm, dl_norm`` (+ ``u, l`` of
+        shape (B, T, n) with ``record_iterates``; + ``cond_Q, cond_G`` with
+        ``record_conds``).  Frozen games repeat their terminal row.
+        """
+        T = int(num_iters or self.params.sqp_iters)
+        body = self._make_body(x0, up, P)
+        c = self._init_carry(u0, l0, x0, up, P)
+        recs = []
+        for _ in range(T):
+            c2 = body(c)
+            rec = dict(status=c2.status, it=c2.it, p_feas=c2.p_feas, comp=c2.comp,
+                       stat=c2.stat, qp_solves=c2.qp_solves,
+                       du_norm=torch.linalg.vector_norm(c2.u - c.u, dim=-1),
+                       dl_norm=torch.linalg.vector_norm(c2.l - c.l, dim=-1))
+            if record_iterates:
+                rec['u'] = c2.u
+                rec['l'] = c2.l
+            if record_conds:
+                out = self._eval_full(c2.u, c2.l, x0, up, P)
+                for name, mat in (('cond_Q', out[0]), ('cond_G', out[2])):
+                    sv = torch.linalg.svdvals(mat)
+                    rec[name] = sv[:, 0] / torch.clamp(sv[:, -1], min=1e-300)
+            recs.append(rec)
+            c = c2
+        trace = {k: torch.stack([r[k] for r in recs], dim=1) for k in recs[0]}
+        return self._finalize(c, x0, up, P), trace
+
+    def initialize(self):
+        pass
+
+    def set_warm_start(self, u_ws: np.ndarray, l_ws: Optional[np.ndarray] = None):
+        """Accepts an (N, n_u) stage-ordered warm start, stores the agent-stacked flat
+        vector."""
+        u_ws = np.asarray(u_ws)
+        if u_ws.shape != (self.N, self.n_u):
+            raise RuntimeError(f'Warm start shape {u_ws.shape} != {(self.N, self.n_u)}')
+        parts = []
+        off = 0
+        for a in range(self.M):
+            parts.append(u_ws[:, off:off + self.num_ua_d[a]].ravel())
+            off += self.num_ua_d[a]
+        self.u_ws = np.concatenate(parts)
+        self.l_ws = l_ws
+
+    def _host_batch(self, states: List[VehicleState], parameters=None):
+        """The stored warm start and ``states`` as a batch of one: (u0, l0, x0, up)."""
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                                      device=self.device)[None]
+        x0 = t(self.joint_dynamics.state2q(states))
+        up = t(np.zeros(self.n_u))
+        u0 = t(self.u_ws)
+        if self.l_ws is not None:
+            l0 = t(self.l_ws)
+        else:
+            l0 = self.problem.dual_warm_start(u0, x0, up, parameters)
+        return u0, l0, x0, up
+
+    def _host_info(self, res: SQPResult, x0, dur: float) -> dict:
+        """Store the predictions of a batch-of-one result and report it."""
+        self.q_pred = self.problem.rollout(res.u, x0)[0].cpu().numpy()
+        self.u_pred = self.problem.u_to_stage(res.u)[0].cpu().numpy()
+        self.l_pred = res.l[0].cpu().numpy()
+        status = int(res.status[0])
+        msg = STATUS_MSG.get(status, 'unknown')
+        self.print_method(f'Solve status: {msg}')
+        self.print_method(f'Solve iters: {int(res.iters[0])}')
+        self.print_method(f'Solve time: {dur:.2f}')
+        return dict(time=dur, num_iters=int(res.iters[0]),
+                    status=(status in (CONV_ABS, CONV_REL)),
+                    cond=dict(p_feas=float(res.p_feas[0]), comp=float(res.comp[0]),
+                              stat=float(res.stat[0])),
+                    qp_solves=int(res.qp_solves[0]), msg=msg,
+                    u_sol=res.u[0].cpu().numpy(), l_sol=self.l_pred)
+
+    def step(self, states: List[VehicleState], parameters=None):
+        """MPC step: solve, apply the first input, shift the warm start."""
+        info = self.solve(states, parameters)
+        self.joint_dynamics.qu2state(states, None, self.u_pred[0])
+        self.state_input_predictions = self.joint_dynamics.qu2prediction(
+            self.state_input_predictions, self.q_pred, self.u_pred)
+        for pred in self.state_input_predictions:
+            pred.t = states[0].t
+        self.u_prev = self.u_pred[0]
+        if info['msg'] not in ('diverged', 'qp_fail'):
+            u_ws = np.vstack((self.u_pred[1:], self.u_pred[-1:]))
+            self.set_warm_start(u_ws)
+        return info
+
+    def get_prediction(self) -> List[VehiclePrediction]:
+        return self.state_input_predictions
+
+
+class DGSQP(_HostInterface):
     """Batched DGSQP v1 solver (flat round machine).
 
     Entry points run on ``device`` (default the card) in ``dtype``; pass
@@ -168,6 +285,9 @@ class DGSQP:
         self.n_q = self.problem.n_q
         self.n_c = self.problem.n_c_total
         self.n_dec = self.problem.n_dec
+        self.num_ua_d = self.problem.num_ua_d
+
+        self._init_host_state()
 
         self._qp_box = self.problem.input_box_structure() if params.qp_box_split else None
         self._qp_pairs = self.problem.state_pair_structure() if params.qp_box_split else None
@@ -455,3 +575,24 @@ class DGSQP:
             can_compact=compact, print_method=self.print_method)
         self.last_chunk_history = history
         return res
+
+    def _make_body(self, x0, up, P=None):
+        raise NotImplementedError('solve_batch_traced records the iterations of the '
+                                  'nested machine, which is not ported (ROADMAP item 7)')
+
+    def solve(self, states: List[VehicleState], parameters=None):
+        """One game from the stored warm start: a batch of one on the flat machine,
+        driven until its status leaves RUNNING."""
+        if parameters is not None:
+            raise NotImplementedError('the flat machine takes no game parameters')
+        t_start = time.time()
+        u0, l0, x0, up = self._host_batch(states)
+        c = self.init_flat_carry(u0, l0)
+        while bool((c.status == RUNNING).any()):
+            c = self._round(c, x0, up)
+        res = self.finalize(c, x0, up)
+        J = self.problem.eval_costs(res.u, x0, up)[0].cpu().numpy()
+        info = self._host_info(res, x0, time.time() - t_start)
+        self.print_method(str(J))
+        info.update(cost=J, init=dict(u=u0[0].cpu().numpy(), l=l0[0].cpu().numpy()))
+        return info

@@ -420,6 +420,10 @@ class GameProblem:
         """g(u): (B, n_c)."""
         return self._constraints_along(self.rollout(u, x0), u, u_prev, P)
 
+    def agent_cost(self, a: int, u, x0, u_prev, P=None):
+        """J^a(u), the cost of agent a along the rollout: (B,)."""
+        return self._agent_cost_along(a, self.rollout(u, x0), u, u_prev, P)
+
     def eval_costs(self, u, x0, u_prev, P=None):
         """All agents' costs: (B, M)."""
         return self._costs_and_constraints(u, x0, u_prev, P)[0]
@@ -470,6 +474,21 @@ class GameProblem:
         Q = torch.cat([(H[:, a] + H[:, M])[:, self.ua_el_offsets[a]:self.ua_el_offsets[a + 1]]
                        for a in range(M)], dim=1)
         return Q, q, G, g, x
+
+    def constraint_indices_for_agent(self, a: int) -> np.ndarray:
+        """Row indices of the constraints entering agent a's best-response problem:
+        shared rows + agent-a rows (incl. its box rows) at every stage."""
+        idxs = []
+        off = 0
+        for k in range(self.N + 1):
+            idxs.append(np.arange(off, off + self.n_cs[k]))
+            a_off = off + self.n_cs[k]
+            for b in range(self.M):
+                if b == a:
+                    idxs.append(np.arange(a_off, a_off + self.n_ca[b][k]))
+                a_off += self.n_ca[b][k]
+            off += self.n_c[k]
+        return np.concatenate(idxs).astype(int)
 
     def dual_warm_start(self, u, x0, u_prev, P=None):
         """Least-squares dual initialization l0 = max(0, -argmin_l ||G'l - q||) with the

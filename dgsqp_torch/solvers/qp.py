@@ -17,7 +17,8 @@ per-instance ``lax.while_loop``; here the loop is a Python loop over the batch i
 each game freezes once it is done or out of iterations (``torch.where`` on the still
 active games) and the loop ends when none is active.  The Cholesky factorizations and
 solves go through :mod:`dgsqp_torch.ops.linalg`, which launches the CUDA kernels on a
-CUDA tensor.  The indefinite (Levenberg-LU) branch is not ported.
+CUDA tensor.  The indefinite branch factorizes a Levenberg-shifted normal matrix with
+``torch.linalg.lu_factor_ex`` (a library call in the JAX version too) and skips the polish.
 """
 from __future__ import annotations
 
@@ -84,6 +85,11 @@ def solve_qp(Q, q, A, b, tol: float = 1e-8, max_iters: int = 50, scale: bool = T
              pairs=None, correctors: int = 0) -> QPSolution:
     """Solve a batch of QPs: Q (B, n, n) SPD, q (B, n), A (B, m, n), b (B, m).
 
+    ``indefinite=True`` accepts a symmetric indefinite ``Q``: the Newton systems use a
+    Levenberg-shifted LU factorization instead of Cholesky, the iteration converges to a
+    KKT point (not necessarily a global minimizer) and the active-set polish is skipped
+    (its Schur machinery needs ``Q`` positive definite).
+
     ``warm``: optional ``(lam0, t0)`` pair of (B, m) tensors, shifted to the central path.
     ``box``: static ``(rows, cols)`` of single-nonzero rows of A, folded into the normal
     matrix diagonal.  ``pairs``: static ``(rows_plus, rows_minus)`` of rows with
@@ -91,8 +97,6 @@ def solve_qp(Q, q, A, b, tol: float = 1e-8, max_iters: int = 50, scale: bool = T
     Gondzio centrality correctors per IPM iteration.  All three leave the solution
     unchanged and only shorten the work, as in the JAX version.
     """
-    if indefinite:
-        raise NotImplementedError('the indefinite (Levenberg-LU) QP path is not ported')
     n = q.shape[-1]
     m = b.shape[-1]
     dtype = q.dtype
@@ -117,7 +121,7 @@ def solve_qp(Q, q, A, b, tol: float = 1e-8, max_iters: int = 50, scale: bool = T
 
     if not scale:
         return _solve_scaled(Q, q, A, b, tol, max_iters, polish_iters, warm, box, pairs,
-                             correctors)
+                             correctors, indefinite)
 
     d_x, e_r = _ruiz_equilibrate(Q, A)
     Qs = Q * d_x[:, :, None] * d_x[:, None, :]
@@ -126,7 +130,8 @@ def solve_qp(Q, q, A, b, tol: float = 1e-8, max_iters: int = 50, scale: bool = T
     bs = b * e_r
     warm_s = None if warm is None else (warm[0] / e_r, warm[1] * e_r)
     inner = solve_qp(Qs, qs, As, bs, tol, max_iters, scale=False, polish_iters=polish_iters,
-                     warm=warm_s, box=box, pairs=pairs, correctors=correctors)
+                     warm=warm_s, indefinite=indefinite, box=box, pairs=pairs,
+                     correctors=correctors)
     x = inner.x * d_x
     lam = inner.lam * e_r
     # re-certify on the original data
@@ -142,7 +147,7 @@ def solve_qp(Q, q, A, b, tol: float = 1e-8, max_iters: int = 50, scale: bool = T
 
 
 def _solve_scaled(Q, q, A, b, tol, max_iters, polish_iters, warm, box, pairs,
-                  correctors) -> QPSolution:
+                  correctors, indefinite=False) -> QPSolution:
     """IPM + polish on already-equilibrated data (the ``scale=False`` body)."""
     B, n = q.shape
     m = b.shape[-1]
@@ -208,14 +213,26 @@ def _solve_scaled(Q, q, A, b, tol, max_iters, polish_iters, warm, box, pairs,
         r_d, r_p, mu = residuals(x, lam, t)
         d = torch.clamp(lam / torch.clamp(t, min=eps_floor), 0.0, d_cap)
         K = normal_matrix(d)
-        # Levenberg guard keeps the factorization alive in ill-conditioned corners
-        trace = torch.diagonal(K, dim1=-2, dim2=-1).sum(-1)
-        K = K + (1e-12 * trace / n)[:, None, None] * eye_n
-        L = cholesky(K.contiguous())
+        if indefinite:
+            # indefinite Q: Levenberg-shifted LU instead of Cholesky
+            shift = 1e-8 * (1.0 + torch.amax(torch.abs(K), dim=(-2, -1)))
+            K = K + shift[:, None, None] * eye_n
+            lu, piv, _ = torch.linalg.lu_factor_ex(K)
+
+            def ksolve(rhs):
+                return torch.linalg.lu_solve(lu, piv, rhs[..., None])[..., 0]
+        else:
+            # Levenberg guard keeps the factorization alive in ill-conditioned corners
+            trace = torch.diagonal(K, dim1=-2, dim2=-1).sum(-1)
+            K = K + (1e-12 * trace / n)[:, None, None] * eye_n
+            L = cholesky(K.contiguous())
+
+            def ksolve(rhs):
+                return cho_solve(L, rhs.contiguous())
 
         def newton(r_c):
             rhs = -r_d - _mtv(A, d * r_p - r_c / t)
-            dx = cho_solve(L, rhs.contiguous())
+            dx = ksolve(rhs)
             dlam = d * (_mv(A, dx) + r_p) - r_c / t
             dt = -(r_c + t * dlam) / lam
             return dx, dlam, dt
@@ -290,7 +307,8 @@ def _solve_scaled(Q, q, A, b, tol, max_iters, polish_iters, warm, box, pairs,
         res = torch.where(active, res_n, res)
         active = ~done & (it < max_iters)
 
-    if polish_iters == 0:
+    if indefinite or polish_iters == 0:
+        # no active-set polish; certify the IPM point
         r_d, r_p, mu = residuals(x, lam, t)
         res = torch.maximum(torch.maximum(_amax(torch.abs(r_d)), _amax(torch.abs(r_p))), mu)
         ok = (res < 1e4 * tol * scale_q) & torch.isfinite(res)

@@ -1,5 +1,6 @@
-"""Solver parameter dataclasses, a jax-free copy of ``DGSQPParams`` from
-``dgsqp_tpu/solvers/solver_types.py`` (field for field, same defaults).
+"""Solver parameter dataclasses, a jax-free copy of ``DGSQPParams`` and
+``DGSQPV2Params`` from ``dgsqp_tpu/solvers/solver_types.py`` (field for field, same
+defaults).
 
 CasADi/codegen knobs (``qp_interface``, ``code_gen``, ``jit`` ...) are kept as inert
 fields so configurations port unchanged.
@@ -80,3 +81,28 @@ class DGSQPParams(ControllerConfig):
     # lockstep execution model: 'auto' = flat round machine when the watchdog is on
     # and Hessians are exact (the only model ported)
     execution: str = 'auto'
+
+
+@dataclass
+class DGSQPV2Params(DGSQPParams):
+    """Journal-algorithm (v2) parameters."""
+    p_tol: float = 1e-4
+    d_tol: float = 1e-4
+    reg: float = 1e2
+    reg_decay: float = 0.95
+    nms: bool = True
+    nms_frequency: int = 5
+    nms_memory_size: int = 3
+    sqp_iters: int = 500
+    merit_parameter: Optional[float] = None   # None => adaptive
+    merit_decrease: float = 0.01              # sigma
+    merit_decrease_condition: str = 'armijo'  # or 'max'
+    approximation_eval: str = 'always'        # 'once' (approximate-game variant)
+    delta_decay: float = 0.95                 # gamma: d-step trust shrink factor
+    # delta init = factor * ||first (du, dl)||.  factor <= 0 disables the unconditional
+    # first d-step so that every iteration is merit-checked
+    nms_initial_step_size_factor: float = 20.0
+    # relative KKT tolerance: scale the stationarity/complementarity tests by
+    # max(1, ||q||_inf) at the current iterate.  Off by default (absolute residuals)
+    conv_scaled_stat: bool = False
+    save_qp_data: bool = False

@@ -75,3 +75,36 @@ def test_shared_memory_attribute_is_set_once_per_instantiation():
     linalg.cholesky(big)
     linalg.cholesky(big)
     assert linalg.cholesky.attr_sets == n_sets[0] + 1
+
+
+@pytest.mark.cuda
+def test_v2_round_on_the_card_launches_both_kernels_and_matches_cpu_float64():
+    """One DGSQP v2 round on 4 games of the bench batch (N = 25): float32 on the card
+    against float64 on the CPU, within the tolerances of ``chip_smoke.py``'s parity
+    phase (derivative-based measures ``DERIV_RTOL``, the step ``STEP_RTOL``)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    from chip_smoke import DERIV_RTOL, STEP_RTOL, rel_err
+    from dgsqp_torch.harness.bench_setup import build_bench_batch, build_bench_solver
+    from dgsqp_torch.harness.scenarios import build_chicane_scenario
+    sc = build_chicane_scenario(N=25, theta_deg=45.0)
+    _, sol_d = build_bench_solver(horizon=25, solver_name='v2', scenario=sc,
+                                  dtype=torch.float32, device='cuda')
+    _, sol_c = build_bench_solver(horizon=25, solver_name='v2', scenario=sc,
+                                  dtype=torch.float64, device='cpu')
+    batch_d = build_bench_batch(sc, sol_d, 4, seed=0)
+    batch_c = tuple(a.to('cpu', torch.float64) for a in batch_d)
+    c_d0 = sol_d._init_carry(*batch_d)
+    n_chol, n_solve = linalg.cholesky.launches, linalg.cho_solve.launches
+    c_d = sol_d._make_body(batch_d[2], batch_d[3])(c_d0)
+    assert linalg.cholesky.launches > n_chol and linalg.cho_solve.launches > n_solve
+    c_c = sol_c._make_body(batch_c[2], batch_c[3])(sol_c._init_carry(*batch_c))
+    for f in ('status', 'it', 'm_it', 'qp_solves', 'ck_counter', 'ck_valid', 'ck_fresh'):
+        assert torch.equal(getattr(c_d, f).cpu(), getattr(c_c, f)), f
+    assert int(c_d.it.min()) == 1 and not torch.equal(c_d.u, c_d0.u)
+    for f, tol in (('memory', DERIV_RTOL), ('p_feas', DERIV_RTOL), ('comp', DERIV_RTOL),
+                   ('stat', DERIV_RTOL), ('u', STEP_RTOL), ('delta', STEP_RTOL)):
+        a, b = getattr(c_d, f).to('cpu', torch.float64), getattr(c_c, f)
+        finite = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), finite), f
+        assert rel_err(a[finite], b[finite]) <= tol, f

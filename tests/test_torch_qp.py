@@ -106,3 +106,26 @@ def test_polish_pads_candidates_to_a_multiple_of_8():
         *(jnp.asarray(a) for a in (Q, q, A, b)))
     sol_t = torch_solve_qp(*(torch.tensor(a) for a in (Q, q, A, b)), tol=1e-8, max_iters=40)
     _compare(sol_j, sol_t)
+
+
+@pytest.mark.parametrize('correctors', [0, 2])
+def test_indefinite_branch_matches_jax(correctors):
+    """``indefinite=True``: a symmetric Q with negative eigenvalues, the normal matrix
+    factorized by Levenberg-shifted LU, no polish.  Box-bounded, so that every QP has a
+    KKT point the iteration can reach."""
+    rng = np.random.default_rng(20 + correctors)
+    B, n = 6, 10
+    X = rng.standard_normal((B, n, n))
+    Q = 0.5 * (X + np.swapaxes(X, 1, 2))
+    assert (np.linalg.eigvalsh(Q)[:, 0] < -0.5).all()
+    q = rng.standard_normal((B, n))
+    A = np.broadcast_to(np.concatenate([np.eye(n), -np.eye(n)]), (B, 2 * n, n)).copy()
+    b = np.ones((B, 2 * n))
+    sol_j = jax.vmap(lambda *a: jax_solve_qp(*a, tol=1e-8, max_iters=50, indefinite=True,
+                                             correctors=correctors))(
+        *(jnp.asarray(a) for a in (Q, q, A, b)))
+    sol_t = torch_solve_qp(*(torch.tensor(a) for a in (Q, q, A, b)), tol=1e-8, max_iters=50,
+                           indefinite=True, correctors=correctors)
+    _compare(sol_j, sol_t)
+    np.testing.assert_allclose(sol_t.t.numpy(), np.asarray(sol_j.t), rtol=TOL, atol=TOL)
+    assert np.asarray(sol_j.ok).any()
