@@ -14,8 +14,8 @@ Phases, each printing one line on stdout:
    with its 64-row polish, the agents study's n = 36 with its 48-row polish), at the
    shapes that reach the other branches of the kernels (an odd size, n = 150,
    right-hand-side counts on each side of the switch between the two ``cho_solve``
-   kernels and off the tile width) and on a batch with one matrix that is not positive
-   definite; and times the kernel (device time from a replayed CUDA graph, and the time
+   kernels and off the tile width), the approximate duel's n = 150 with its 96-row
+   polish, and on a batch with one matrix that is not positive definite; and times the kernel (device time from a replayed CUDA graph, and the time
    per call of a loop of eager calls), the plain version and the library call that
    computes the same function.
 3. ``parity``: one round of ``evaluate`` + convexified QP on 16 games of the seed-0
@@ -29,10 +29,17 @@ Phases, each printing one line on stdout:
    warm-up, with the launch counts, the m-step counts and the chunks' bucket sizes.
 6. ``mc_study``: ``run_mc_study`` on the agents scenario (M=3, N=6, n=36 decisions), 16
    samples, seed 0, DGSQP v2, float32, with the launch counts and ``analyze_results``.
+7. ``approx_parity``: as ``parity``, on 16 games of the approximate duel's bench batch
+   (``build_bench_solver(solver_name='approx')``: progress-augmented bicycles, N=25,
+   n=150 decisions, ``approximation_eval='exact'``), DGSQP v2's symmetrised Hessian and
+   QP with its regularisation.
+8. ``approx_path``: that batch (256 games, seed 0, float32) solved by
+   ``DGSQPV2FrenetApprox`` with ``solve_batch_chunked(chunk_iters=4)``, compaction on,
+   after the same warm-up, with the launch counts, m-step counts and buckets.
 
-The launch counts are set to 0 just before each of the three paths and read just after;
+The launch counts are set to 0 just before each of the four paths and read just after;
 each path fails if a kernel was not launched in it.  Then one JSON line of per-kernel
-numbers (``launches`` is the count of ``v2_path``, ``launches_by_path`` has all three),
+numbers (``launches`` is the count of ``v2_path``, ``launches_by_path`` has all four),
 and last ``{"ok": true, "device": ...}``.
 Any failed check raises and the script exits non-zero; without a card it exits
 non-zero before printing any result.
@@ -59,6 +66,16 @@ CONV_ABS_MIN, CONV_ANY_MIN = 0.45, 0.70
 # DGSQP v2 on the same batch: the JAX package's float32 record is 0.555 conv_abs with no
 # conv_rel exit, so both limits are 0.45
 V2_CONV_ABS_MIN, V2_CONV_ANY_MIN = 0.45, 0.45
+# the approximate duel: the JAX package's float32 record of its seed-0 batch is 0.094
+# conv_abs and 0.961 conv_abs + conv_rel (float32 stationarity plateaus near the O(1e3)
+# gradient scale's rounding, so most games exit conv_rel); conv_abs is reported against
+# its limit, conv_abs + conv_rel fails below its own
+APPROX_CONV_ABS_LIMIT, APPROX_CONV_ANY_MIN = 0.03, 0.85
+APPROX_N_DEC = 150
+# the sizes both kernels must launch at on that path: the interior-point normal matrix
+# (n = 150) and the polish's Schur complement (max(48, 150 // 2 + 14) = 89 rows, padded
+# to 96)
+APPROX_KERNEL_NS = (150, 96)
 WARMUP_GAMES = 16
 # the agents study of the mc_study phase: the bench's operating point for the exact game
 # (small constant regularization) with a short budget
@@ -184,11 +201,12 @@ def phase_kernels(device='cuda', shapes=None, time_it=True):
     gen = torch.Generator(device=device).manual_seed(0)
     shapes = shapes or {
         'chol': [(256, 100, 0), (256, 64, 0), (5, 37, 0), (64, 150, 0),
-                 (16, 36, 0), (16, 48, 0)],
+                 (16, 36, 0), (16, 48, 0), (256, 150, 0), (256, 96, 0)],
         'cho_solve': [(256, 100, 1), (256, 100, 64), (256, 64, 1), (5, 37, 3), (256, 100, 8),
                       (256, 100, linalg.WARP_PATH_MAX_K), (256, 100, linalg.WARP_PATH_MAX_K + 1),
                       (256, 100, 33), (5, 37, 33), (64, 150, 1), (64, 150, 64),
-                      (16, 36, 1), (16, 36, 36), (16, 36, 48), (16, 48, 1)]}
+                      (16, 36, 1), (16, 36, 36), (16, 36, 48), (16, 48, 1),
+                      (256, 150, 1), (256, 150, 96), (256, 96, 1)]}
     rows = []
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split('.')[-1]
@@ -238,20 +256,30 @@ def phase_kernels(device='cuda', shapes=None, time_it=True):
     return [r for r in rows if r['kernel'] != 'non_pd']
 
 
-def phase_parity(sc, sol_dev, sol_cpu, batch, n_games=16):
+def _eval_and_step(sol, u0, l0, x0, up):
+    """One evaluate + convexified QP step: v1's ``_qp(Q, q, G, g)`` on the game Hessian,
+    or v2's symmetrised Hessian and ``_qp`` with the initial regularisation."""
+    import torch
+    if hasattr(sol, '_eval_full'):
+        out = sol._eval_full(u0, l0, x0, up, None)
+        reg = torch.full((u0.shape[0],), sol.params.reg, dtype=sol.dtype, device=sol.device)
+        return out, sol._qp(*out, reg)[0]
+    out = sol.problem.evaluate(u0, l0, x0, up)[:4]
+    return out, sol._qp(*out)[0]
+
+
+def phase_parity(sc, sol_dev, sol_cpu, batch, n_games=16, phase='parity'):
     """One evaluate + convexified QP: the port on the card (f32) against the port on the
     CPU (f64) on the same inputs."""
     import torch
     u0, l0, x0, up = (a[:n_games] for a in batch)
-    out_d = sol_dev.problem.evaluate(u0, l0, x0, up)
-    du_d = sol_dev._qp(*out_d[:4])[0]
+    out_d, du_d = _eval_and_step(sol_dev, u0, l0, x0, up)
     args_c = [a.detach().to('cpu', torch.float64) for a in (u0, l0, x0, up)]
-    out_c = sol_cpu.problem.evaluate(*args_c)
-    du_c = sol_cpu._qp(*out_c[:4])[0]
+    out_c, du_c = _eval_and_step(sol_cpu, *args_c)
     diffs = {name: rel_err(a.to('cpu', torch.float64), b)
-             for name, a, b in zip('Q q G g'.split(), out_d[:4], out_c[:4])}
+             for name, a, b in zip('Q q G g'.split(), out_d, out_c)}
     diffs['du'] = rel_err(du_d.to('cpu', torch.float64), du_c)
-    line = {'phase': 'parity', 'games': n_games, 'rel_diff': diffs,
+    line = {'phase': phase, 'scenario': sc.name, 'games': n_games, 'rel_diff': diffs,
             'tol': {'derivatives': DERIV_RTOL, 'du': STEP_RTOL},
             'why': 'f32 on the card vs f64 on the CPU: derivatives carry f32 rounding '
                    'through the rollout; the QP step is solved to 3e-7 after Ruiz scaling'}
@@ -259,14 +287,15 @@ def phase_parity(sc, sol_dev, sol_cpu, batch, n_games=16):
     bad = [k for k, v in diffs.items()
            if not v <= (STEP_RTOL if k == 'du' else DERIV_RTOL)]
     if bad:
-        raise AssertionError(f'parity outside tolerance: {bad}')
+        raise AssertionError(f'{phase} outside tolerance: {bad}')
     return diffs
 
 
 def reset_launches():
     from dgsqp_torch.ops import linalg
-    linalg.cholesky.launches = 0
-    linalg.cho_solve.launches = 0
+    for wrapper in (linalg.cholesky, linalg.cho_solve):
+        wrapper.launches = 0
+        wrapper.launches_by_n = {}
 
 
 def read_launches():
@@ -274,11 +303,21 @@ def read_launches():
     return {'chol': linalg.cholesky.launches, 'cho_solve': linalg.cho_solve.launches}
 
 
-def phase_bench_path(phase, solver_name, sol, batch, conv_min, conv_any_min, chunk=4, **kw):
+def read_launches_by_n():
+    from dgsqp_torch.ops import linalg
+    return {'chol': dict(linalg.cholesky.launches_by_n),
+            'cho_solve': dict(linalg.cho_solve.launches_by_n)}
+
+
+def phase_bench_path(phase, solver_name, sol, batch, conv_min, conv_any_min, chunk=4,
+                     metric='chicane_2agent_solves_per_s', n_dec=None, conv_abs_limit=None,
+                     kernel_ns=(), **kw):
     """Solve the bench batch with ``sol.solve_batch_chunked(chunk_iters=chunk, **kw)``
     after a warm-up of one chunk on a few games, print the bench's fields and check the
-    result.  Every result must be finite; for v2 a game that diverged is exempt (it stops
-    with whatever iterate it had)."""
+    result.  Every result must be finite; for v2 and the approximate game a game that
+    diverged is exempt (it stops with whatever iterate it had).  ``conv_min`` fails the
+    phase below it; ``n_dec``, where given, is the decision count the path must run at,
+    and both kernels must have launched at every matrix size of ``kernel_ns``."""
     import numpy as np
     import torch
     from dgsqp_torch.ops import linalg
@@ -312,6 +351,7 @@ def phase_bench_path(phase, solver_name, sol, batch, conv_min, conv_any_min, chu
     torch.cuda.synchronize()
     dur = time.time() - t0
     launches = read_launches()
+    launches_by_n = read_launches_by_n()
 
     status = res.status.cpu().numpy()
     iters = res.iters.cpu().numpy()
@@ -326,7 +366,7 @@ def phase_bench_path(phase, solver_name, sol, batch, conv_min, conv_any_min, chu
     chunks = sol.last_chunk_history
     line = {
         'phase': phase,
-        'metric': 'chicane_2agent_solves_per_s',
+        'metric': metric,
         'value': B / dur,
         'unit': 'solves/s',
         'solve_s': dur,
@@ -338,23 +378,28 @@ def phase_bench_path(phase, solver_name, sol, batch, conv_min, conv_any_min, chu
         'status_counts': hist,
         'iters_p50': float(np.median(iters)), 'iters_max': int(iters.max()),
         'stat_p50': float(np.median(stat_f)), 'stat_p90': float(np.percentile(stat_f, 90)),
-        'batch': int(B), 'horizon': sol.N, 'solver': solver_name, 'dtype': str(sol.dtype),
+        'batch': int(B), 'horizon': sol.N, 'n_dec': sol.n_dec, 'n_c': sol.n_c,
+        'solver': solver_name, 'dtype': str(sol.dtype),
         'chunks': len(chunks), 'running_after_chunk': [c['running'] for c in chunks],
         'chunk_batch': [c['batch'] for c in chunks],
         'chunk_wall_s': [c['wall_s'] for c in chunks],
-        'launches': launches, 'qp_calls': qp_calls[0],
+        'launches': launches, 'launches_by_n': launches_by_n, 'qp_calls': qp_calls[0],
         'peak_device_mib': torch.cuda.max_memory_allocated() / 2 ** 20,
         'attr_sets_in_this_solve': (linalg.cholesky.attr_sets + linalg.cho_solve.attr_sets
                                     - attr_sets),
         # one digit per game, in batch order: the game's status code
         'status_string': ''.join(str(int(s)) for s in status),
     }
-    if solver_name == 'v2':
+    v2_family = solver_name in ('v2', 'approx')
+    if v2_family:
         m_its = sol.last_m_iters.cpu().numpy()
         line['m_steps_p50'] = float(np.median(m_its))
         line['m_steps_max'] = int(m_its.max())
+    if conv_abs_limit is not None:
+        line['conv_abs_limit'] = conv_abs_limit
+        line['conv_abs_at_or_above_limit'] = conv >= conv_abs_limit
     emit(line)
-    alive = torch.as_tensor((status != DIVERGED) | (solver_name != 'v2'), device=res.u.device)
+    alive = torch.as_tensor((status != DIVERGED) | (not v2_family), device=res.u.device)
     finite = all(bool(torch.isfinite(t[alive]).all()) for t in (res.u, res.l, res.stat,
                                                                 res.p_feas, res.comp))
     problems = []
@@ -367,6 +412,12 @@ def phase_bench_path(phase, solver_name, sol, batch, conv_min, conv_any_min, chu
     if conv < conv_min or conv_any < conv_any_min:
         problems.append(f'convergence {conv:.3f}/{conv_any:.3f} below '
                         f'{conv_min}/{conv_any_min}')
+    if n_dec is not None and sol.n_dec != n_dec:
+        problems.append(f'the path ran at n = {sol.n_dec}, not {n_dec}')
+    missing = [(name, n) for name in launches_by_n for n in kernel_ns
+               if not launches_by_n[name].get(n)]
+    if missing:
+        problems.append(f'kernels not launched at these sizes: {missing}')
     if problems:
         raise AssertionError(f'{phase}: ' + '; '.join(problems))
     return line
@@ -445,6 +496,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
     phase_build()
     rows = phase_kernels()
 
@@ -463,7 +515,19 @@ def main():
                                            V2_CONV_ANY_MIN)['launches']
     launches['mc_study'] = phase_mc_study()
 
+    sc_ap, sol_ap = build_bench_solver(horizon=25, solver_name='approx',
+                                       dtype=torch.float32, device='cuda')
+    _, sol_ap_cpu = build_bench_solver(horizon=25, solver_name='approx', scenario=sc_ap,
+                                       dtype=torch.float64, device='cpu')
+    batch_ap = build_bench_batch(sc_ap, sol_ap, 256, seed=0)
+    phase_parity(sc_ap, sol_ap, sol_ap_cpu, batch_ap, phase='approx_parity')
+    launches['approx_path'] = phase_bench_path(
+        'approx_path', 'approx', sol_ap, batch_ap, 0.0, APPROX_CONV_ANY_MIN,
+        metric='approx_duel_solves_per_s', n_dec=APPROX_N_DEC,
+        conv_abs_limit=APPROX_CONV_ABS_LIMIT, kernel_ns=APPROX_KERNEL_NS)['launches']
+
     emit(kernel_summary(rows, launches))
+    emit({'phase': 'total', 'seconds': time.time() - t_start})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})
 

@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dgsqp_torch.harness.warm_start import duel_warm_start, pid_warm_start
+from dgsqp_torch.harness.warm_start import (duel_warm_start, pa_twins, pa_warm_start,
+                                            pid_warm_start)
 
 
 def sample_duel_initial_conditions(scenario, num_samples: int, seed: int = 0,
@@ -20,10 +21,11 @@ def sample_duel_initial_conditions(scenario, num_samples: int, seed: int = 0,
     """Draw ``num_samples`` accepted (x0_joint, u_ws, v_refs, lat_refs) tuples.
 
     Returns numpy arrays x0 (B, n_q), u_ws (B, N, n_u), v_ref (B, 2), lat_ref (B, 2);
-    the track placement and warm start run in ``dtype`` on ``device``.
+    the track placement and warm start run in ``dtype`` on ``device``.  For a
+    progress-augmented scenario the PID rolls on combined twins (``pa_warm_start``) and
+    x0 comes back in the progress-augmented layout.
     """
-    if any(getattr(m, 'n_u', 2) != 2 for m in scenario.joint_model.dynamics_models):
-        raise NotImplementedError('progress-augmented scenarios are not ported')
+    twins = pa_twins(scenario)
     track = scenario.track
     first_seg_len = float(scenario.track.cl_segs[0, 0])
     hw = scenario.half_width
@@ -57,7 +59,12 @@ def sample_duel_initial_conditions(scenario, num_samples: int, seed: int = 0,
         v_ref = np.stack([ego_v, tar_v], axis=-1)
         lat_ref = np.stack([ego_ey, tar_ey], axis=-1)
 
-        u_ws, _, collision = duel_warm_start(scenario, t(x0), t(v_ref), t(lat_ref))
+        if twins is None:
+            u_ws, _, collision = duel_warm_start(scenario, t(x0), t(v_ref), t(lat_ref))
+        else:
+            u_ws, x0_pa, collision = pa_warm_start(scenario, twins, t(x0), t(v_ref),
+                                                   t(lat_ref))
+            x0 = x0_pa.cpu().numpy().astype(np.float64)
         ok = geo_ok & ~collision.cpu().numpy()
         idx = np.where(ok)[0][:need]
         if idx.size:

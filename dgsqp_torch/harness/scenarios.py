@@ -1,6 +1,7 @@
 """Benchmark scenario factories, ported from ``dgsqp_tpu/harness/scenarios.py``
 (``Scenario``, ``build_racing_duel``, ``build_chicane_scenario``,
-``build_curve_scenario``, ``build_agents_scenario``).
+``build_curve_scenario``, ``build_agents_scenario``, ``build_approximate_duel``,
+``build_exact_duel``).
 
 Costs and constraints are callables on tensors with any leading batch shape (the last
 dimension holds the state or input), so the game evaluates a group of stages in one call.
@@ -261,3 +262,131 @@ def build_agents_scenario(M: int = 3, N: int = 25, theta_deg: float = 90.0,
                     input_lb=np.array([-u_a_max, -u_steer_max]),
                     input_rate_ub=np.array([u_a_rate, u_steer_rate]),
                     input_rate_lb=np.array([-u_a_rate, -u_steer_rate]))
+
+
+def _default_duel_track(half_width: float):
+    return ChicaneTrack(enter_straight_length=1, curve1_length=4,
+                        curve1_swept_angle=np.pi / 4, mid_straight_length=1,
+                        exit_straight_length=5, curve2_length=4,
+                        curve2_swept_angle=np.pi / 4, width=half_width * 2,
+                        slack=0.8, mirror=False)
+
+
+def build_approximate_duel(track=None, N: int = 25, dt: float = 0.1,
+                           comp_weights=(1.0, 5.0), input_weight=(1.0, 1.0, 1e-4),
+                           input_rate_weight=(1.0, 1.0, 1e-4), agent_r: float = 0.21,
+                           u_a_max: float = 2.1, u_steer_max: float = 0.436,
+                           u_ds_max: float = 4.0, u_a_rate: float = 10.0,
+                           u_steer_rate: float = 4.5, u_ds_rate: float = 5.0,
+                           half_width: float = 1.0, rate_constraints: bool = True,
+                           name: str = 'approx_duel') -> Scenario:
+    """Approximate (MPCC) racing duel on progress-augmented kinematic bicycles.
+
+    Quadratic input and input-rate stage costs (the virtual arc-speed channel
+    included), linear progress + competitive terminal costs on the progress states,
+    shared collision avoidance.  The contouring/lag costs and the track-boundary
+    constraints are added by ``DGSQPV2FrenetApprox``.
+
+    The input-rate rows (``rate_constraints=True``) act as a per-stage trust region
+    that keeps the linearisation point honest; the reference study builds them but
+    passes none (``rate_constraints=False``).  With the rows, the virtual channel's
+    previous input must be seeded with the car's initial progress rate
+    (``seed_virtual_rate_prev``), else the first row caps u_ds(0) at dt * u_ds_rate.
+    """
+    from dgsqp_torch.dynamics.progress_augmented import KinematicBicycleProgressAugmented
+    if track is None:
+        track = _default_duel_track(half_width)
+    cfg = KinematicBicycleConfig(dt=dt, model_name='kinematic_bicycle', noise=False,
+                                 discretization_method='euler',
+                                 wheel_dist_front=0.13, wheel_dist_rear=0.13)
+    car1 = KinematicBicycleProgressAugmented(0.0, cfg, track=track)
+    car2 = KinematicBicycleProgressAugmented(
+        0.0, KinematicBicycleConfig(**{**cfg.__dict__}), track=track)
+    joint = MultiAgentDynamicsModel(0.0, [car1, car2], MultiAgentModelConfig(dt=dt))
+
+    # joint indices: agent blocks of 5 states [x, y, v, psi, s]
+    S1, S2 = 4, 9
+    XY1, XY2 = (0, 1), (5, 6)
+    obs_d = 2 * agent_r
+
+    def make_cost(own_s, other_s):
+        w, wr = input_weight, input_rate_weight
+
+        def stage(x, u, um):
+            return 0.5 * (w[0] * u[..., 0] ** 2 + w[1] * u[..., 1] ** 2
+                          + w[2] * u[..., 2] ** 2) \
+                + 0.5 * (wr[0] * (u[..., 0] - um[..., 0]) ** 2
+                         + wr[1] * (u[..., 1] - um[..., 1]) ** 2
+                         + wr[2] * (u[..., 2] - um[..., 2]) ** 2)
+
+        def term(x):
+            return -comp_weights[0] * x[..., own_s] \
+                + comp_weights[1] * (x[..., other_s] - x[..., own_s])
+        return (stage, term)
+
+    costs = [make_cost(S1, S2), make_cost(S2, S1)]
+
+    def obs_avoid(x, u, um):
+        dx = x[..., XY1[0]] - x[..., XY2[0]]
+        dy = x[..., XY1[1]] - x[..., XY2[1]]
+        return (obs_d ** 2 - (dx * dx + dy * dy))[..., None]
+
+    def obs_avoid_term(x):
+        dx = x[..., XY1[0]] - x[..., XY2[0]]
+        dy = x[..., XY1[1]] - x[..., XY2[1]]
+        return (obs_d ** 2 - (dx * dx + dy * dy))[..., None]
+
+    shared_constraints = [None] + [obs_avoid] * (N - 1) + [obs_avoid_term]
+
+    def rate_constr(x, u, um):
+        du = u - um
+        return torch.stack([du[..., 0] - dt * u_a_rate,
+                            -dt * u_a_rate - du[..., 0],
+                            du[..., 1] - dt * u_steer_rate,
+                            -dt * u_steer_rate - du[..., 1],
+                            du[..., 2] - dt * u_ds_rate,
+                            -dt * u_ds_rate - du[..., 2]], dim=-1)
+
+    if rate_constraints:
+        agent_constraints = [[rate_constr] * N + [None], [rate_constr] * N + [None]]
+    else:
+        agent_constraints = [[None] * (N + 1), [None] * (N + 1)]
+
+    def bound(sign):
+        return VehicleState(
+            x=Position(x=sign * np.inf, y=sign * np.inf),
+            p=ParametricPose(s=sign * np.inf, x_tran=sign * np.inf, e_psi=sign * np.inf),
+            e=OrientationEuler(psi=sign * np.inf),
+            v=BodyLinearVelocity(v_long=sign * np.inf, v_tran=sign * np.inf),
+            w=BodyAngularVelocity(w_psi=sign * np.inf),
+            u=VehicleActuation(u_a=sign * u_a_max, u_steer=sign * u_steer_max,
+                               u_ds=u_ds_max if sign > 0 else 0.0))
+
+    bounds = {'ub': [bound(1), bound(1)], 'lb': [bound(-1), bound(-1)]}
+
+    return Scenario(name=name, track=track, joint_model=joint, costs=costs,
+                    agent_constraints=agent_constraints,
+                    shared_constraints=shared_constraints, bounds=bounds, N=N, dt=dt,
+                    obs_d=obs_d, half_width=half_width,
+                    input_ub=np.array([u_a_max, u_steer_max, u_ds_max]),
+                    input_lb=np.array([-u_a_max, -u_steer_max, 0.0]),
+                    input_rate_ub=np.array([u_a_rate, u_steer_rate, u_ds_rate]),
+                    input_rate_lb=np.array([-u_a_rate, -u_steer_rate, -u_ds_rate]))
+
+
+def build_exact_duel(track=None, N: int = 25, dt: float = 0.1,
+                     comp_weights=(1.0, 5.0), agent_r: float = 0.21,
+                     half_width: float = 1.0, name: str = 'exact_duel') -> Scenario:
+    """The exact formulation of the game of :func:`build_approximate_duel`, on the same
+    track with the same costs: kinematic-bicycle-combined agents, linear terminal
+    progress/competition, the same collision radius and input-rate rows on the real
+    channels, the track kept by the |x_tran| <= half-width state bound, and no drag or
+    slip (the progress-augmented plant has none)."""
+    if track is None:
+        track = _default_duel_track(half_width)
+    return build_racing_duel(track, N=N, dt=dt, comp_weights=comp_weights,
+                             input_weight=(1.0, 1.0), input_rate_weight=(1.0, 1.0),
+                             agent_r=agent_r, half_width=half_width,
+                             u_a_rate=10.0, u_steer_rate=4.5, comp_linear=True,
+                             drag_coefficient=0.0, slip_coefficient=0.0,
+                             rate_constraints=True, name=name)

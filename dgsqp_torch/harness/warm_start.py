@@ -99,3 +99,48 @@ def seed_virtual_rate_prev(up, u_ws_stage0, joint_model):
             idx = int(offs[a]) + 2
             up[..., idx] = u_ws_stage0[..., idx]
     return up
+
+
+def pa_twins(scenario):
+    """Combined-bicycle twins for warm-starting progress-augmented scenarios: None for
+    plain 2-input scenarios, else one ``KinematicBicycleCombined`` per agent with its
+    configuration and track (the approximate game is warm-started by rolling the PID
+    through the exact model and appending the arc-speed channel)."""
+    models = scenario.joint_model.dynamics_models
+    if all(getattr(m, 'n_u', 2) == 2 for m in models):
+        return None
+    from dgsqp_torch.dynamics.models import KinematicBicycleCombined
+    return [KinematicBicycleCombined(0.0, m.model_config, track=m.track) for m in models]
+
+
+def pa_warm_start(scenario, twins, q0_joint, v_refs, lat_refs):
+    """PID warm start of a progress-augmented (MPCC) scenario, for a batch.
+
+    ``q0_joint`` (B, 6M) is in the combined layout ([x, y, v, e_psi, s, x_tran] per
+    agent, the sampler's frame).  The PID lane followers roll on the combined twins;
+    each agent's inputs ``[u_a, u_steer]`` get the virtual arc speed
+    ``u_ds_k = (s_{k+1} - s_k)/dt`` appended, and its initial state becomes
+    ``[x, y, v, psi, s]`` with ``psi = e_psi + tangent angle at s``.
+
+    Returns (u_ws (B, N, 3M), x0_pa (B, 5M), collision (B,)).
+    """
+    N, dt = scenario.N, scenario.dt
+    u_list, q_list, x0_list = [], [], []
+    for a, m in enumerate(twins):
+        q0 = q0_joint[..., 6 * a:6 * (a + 1)]
+        u_seq, q_seq = pid_rollout(m, q0, v_refs[..., a], lat_refs[..., a], N, dt,
+                                   scenario.input_ub[:2], scenario.input_rate_ub[:2])
+        ds = (q_seq[..., 1:, 4] - q_seq[..., :-1, 4]) / dt
+        u_list.append(torch.cat([u_seq, ds[..., None]], dim=-1))
+        q_list.append(q_seq)
+        psi0 = q0[..., 3] + m.track.tangent_angle(q0[..., 4])
+        x0_list.append(torch.stack([q0[..., 0], q0[..., 1], q0[..., 2], psi0, q0[..., 4]],
+                                   dim=-1))
+    u_ws = torch.cat(u_list, dim=-1)
+    x0_pa = torch.cat(x0_list, dim=-1)
+    collision = torch.zeros(q0_joint.shape[:-1], dtype=torch.bool, device=q0_joint.device)
+    for i in range(len(twins)):
+        for j in range(i + 1, len(twins)):
+            d = torch.linalg.vector_norm(q_list[i][..., 0:2] - q_list[j][..., 0:2], dim=-1)
+            collision = collision | torch.any(d < scenario.obs_d, dim=-1)
+    return u_ws, x0_pa, collision

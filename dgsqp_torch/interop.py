@@ -12,7 +12,12 @@ the caller) and never imports JAX, so both packages can compute on bit-identical
   NamedTuple of the same fields;
 * :func:`fields_to_numpy` gives the fields of a NamedTuple or dataclass of either
   package (a carry, an ``MCResults``) as numpy arrays, for comparisons;
-* :func:`to_mc_results` converts an ``MCResults`` into the port's dataclass.
+* :func:`to_mc_results` converts an ``MCResults`` into the port's dataclass;
+* :func:`mpcc_params` converts the approximate game's parameter pytree (the JAX
+  ``_evaluate_mpcc`` output, a dict of per-agent lists, stacked over the games) into the
+  port's batched ``P``;
+* :func:`load_track_splines` installs the knots and coefficients of the JAX
+  ``TrackSplines``' ``_Spline1D`` objects on a port model's splines.
 """
 from __future__ import annotations
 
@@ -68,3 +73,24 @@ def to_mc_results(results, cls):
     """An ``MCResults`` of the JAX package as the port's ``cls``, field by field."""
     src = fields_to_numpy(results)
     return cls(**{f.name: src[f.name] for f in dataclasses.fields(cls)})
+
+
+def mpcc_params(P, dtype=torch.float64, device='cuda'):
+    """An approximate-game parameter pytree ``{'Qe', 'qe', 'Gtb', 'gtb'}`` of per-agent
+    (B, N+1, ...) arrays (the games' pytrees stacked, as ``vmap`` gives them) as the
+    port's ``P`` of tensors in the same layout."""
+    return {key: [to_tensor(a, dtype, device) for a in P[key]]
+            for key in ('Qe', 'qe', 'Gtb', 'gtb')}
+
+
+def load_track_splines(splines, src):
+    """Install the six splines of ``src`` (an object with attributes x, y, xi, yi, xo,
+    yo, each with numpy-convertible ``knots`` and ``coeffs``, such as the JAX
+    ``TrackSplines``) on the port's ``TrackSplines`` ``splines``."""
+    from dgsqp_torch.dynamics.progress_augmented import SPLINE_NAMES
+    from dgsqp_torch.tracks.bspline import _Spline1D
+    splines.set_splines({
+        name: _Spline1D(np.asarray(getattr(src, name).knots, np.float64),
+                        coeffs=np.asarray(getattr(src, name).coeffs, np.float64))
+        for name in SPLINE_NAMES})
+    return splines

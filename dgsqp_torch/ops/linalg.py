@@ -12,9 +12,10 @@ The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into shared
 libraries with a plain C interface under ``build/kernels/`` (listed in ``.gitignore``),
 one ``nvcc`` per source, started together, and bound with ``ctypes``.  Each wrapper
 counts its kernel launches in a plain integer attribute, ``cholesky.launches`` and
-``cho_solve.launches``, and beside it the times it raised a kernel's shared-memory
-limit, ``cholesky.attr_sets`` and ``cho_solve.attr_sets``: once per kernel, dtype, device
-and largest size seen, not once per launch.
+``cho_solve.launches``, the same launches by matrix size n in a dict,
+``cholesky.launches_by_n`` and ``cho_solve.launches_by_n``, and the times it raised a
+kernel's shared-memory limit, ``cholesky.attr_sets`` and ``cho_solve.attr_sets``: once
+per kernel, dtype, device and largest size seen, not once per launch.
 
 ``chol.cu`` factors by panels of ``CHOL_PANEL`` columns.  ``cho_solve.cu`` holds two
 kernels and :func:`cho_solve_plan` picks one from (n, k, dtype) alone: up to
@@ -234,10 +235,12 @@ def cholesky(A):
             smem, set_attr, index, torch.cuda.current_stream(A.device).cuda_stream)
     _raise_on(rc, 'cholesky')
     cholesky.launches += 1
+    cholesky.launches_by_n[n] = cholesky.launches_by_n.get(n, 0) + 1
     return L
 
 
 cholesky.launches = 0
+cholesky.launches_by_n = {}
 cholesky.attr_sets = 0
 
 
@@ -272,8 +275,10 @@ def cho_solve(L, b):
             torch.cuda.current_stream(L.device).cuda_stream)
     _raise_on(rc, 'cho_solve')
     cho_solve.launches += 1
+    cho_solve.launches_by_n[n] = cho_solve.launches_by_n.get(n, 0) + 1
     return x
 
 
 cho_solve.launches = 0
+cho_solve.launches_by_n = {}
 cho_solve.attr_sets = 0

@@ -15,7 +15,10 @@ computed with ``torch.func`` (forward-mode for ``q, G``; forward-over-reverse fo
 entry N = terminal, entries may be ``None``) written on tensors with any leading batch
 shape, so a group of stages that share a callable is evaluated in one call on the
 stacked stage tensors.  Rows are assembled in the reference's canonical order by one
-precomputed gather.
+precomputed gather.  A ``stage_indexed`` callable also receives its stages' indices
+``k`` (a tensor for a group, the int N at the terminal stage); a parameter pytree ``P``
+that it reads per stage holds each entry as (B, N+1, ...), the games first, so that
+``P[...][:, k]`` gives the group's stages of every game.
 
 Every method takes a batch: each tensor argument has a leading batch dimension, and the
 per-game Jacobians are taken by seeding all games with the same tangent or cotangent
@@ -186,9 +189,15 @@ class GameProblem:
 
     # -------------------------------------------------- constraint bookkeeping
     def _probe_rows(self, fn, x, u, um, terminal=False):
+        # a parameterised constraint that cannot be called with P=None declares its row
+        # count as ``n_out``, or a ``probe_rows(x, u, um)`` that counts them (the
+        # approximate game's combined closures)
         n_out = getattr(fn, 'n_out', None)
         if n_out is not None:
             return int(n_out)
+        probe = getattr(fn, 'probe_rows', None)
+        if probe is not None:
+            return int(probe(x, u, um))
         if terminal:
             return int(_call_term(fn, x, None, 0).numel())
         return int(_call_stage(fn, x, u, um, None, 0).numel())

@@ -2,8 +2,10 @@
 """Monte-Carlo study dispatcher of the PyTorch/CUDA port (``dgsqp_torch``).
 
 The counterpart of ``scripts/monte_carlo_main.py`` for what the port holds: one argparse
-entry point dispatching {scenario} x {solver}; each configuration is one batched solve
-on one device.
+entry point dispatching {scenario} x {solver} x {formulation}; each configuration is one
+batched solve on one device.  ``--formulation approximate`` solves the kinematic duel's
+approximate (MPCC) game with ``DGSQPV2FrenetApprox``; ``--scenario duel`` is the exact
+formulation of the same game.
 
 Examples:
     python scripts/torch_monte_carlo_main.py --scenario chicane --solver dgsqp --n 200
@@ -11,6 +13,8 @@ Examples:
     python scripts/torch_monte_carlo_main.py --scenario agents --agents 3 --solver dgsqp_v2
     python scripts/torch_monte_carlo_main.py --scenario curve --device cpu --dtype float64 \\
         --n 8 --N 6
+    python scripts/torch_monte_carlo_main.py --formulation approximate --n 256
+    python scripts/torch_monte_carlo_main.py --scenario duel --solver dgsqp_v2
 """
 import sys
 from pathlib import Path
@@ -22,13 +26,17 @@ import json
 # choices of scripts/monte_carlo_main.py; those outside PORTED_* exit with code 2
 SCENARIOS = ['chicane', 'curve', 'merge', 'agents', 'dynamic', 'duel']
 SOLVERS = ['dgsqp', 'dgsqp_v2', 'algames', 'mcp']
-PORTED_SCENARIOS = ('chicane', 'curve', 'agents')
+PORTED_SCENARIOS = ('chicane', 'curve', 'agents', 'duel')
 PORTED_SOLVERS = ('dgsqp', 'dgsqp_v2')
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument('--scenario', default='chicane', choices=SCENARIOS)
+    ap.add_argument('--scenario', default='chicane', choices=SCENARIOS,
+                    help="'duel' = the comparison-study game (exact formulation: "
+                         "build_exact_duel); with --formulation approximate every "
+                         "scenario but 'dynamic' solves build_approximate_duel")
+    ap.add_argument('--formulation', default='exact', choices=['exact', 'approximate'])
     ap.add_argument('--solver', default='dgsqp', choices=SOLVERS)
     ap.add_argument('--n', type=int, default=200, help='number of Monte-Carlo samples')
     ap.add_argument('--N', type=int, default=25, help='horizon length')
@@ -40,8 +48,13 @@ def main(argv=None):
     ap.add_argument('--d_tol', type=float, default=1e-3)
     ap.add_argument('--merit_function', default='stat_l1')
     ap.add_argument('--merit_decrease_condition', default='armijo')
+    ap.add_argument('--eval_type', default='exact', choices=['always', 'once', 'exact'],
+                    help="MPCC geometry cadence: 'once' re-linearises per SQP iteration, "
+                         "'always' also at every merit/trial point, 'exact' "
+                         "differentiates through the track splines")
     ap.add_argument('--conv', default=None, choices=['eigh', 'ns', 'none'],
-                    help='Hessian convexification (DGSQP v1)')
+                    help="Hessian convexification (DGSQP v1; the approximate game "
+                         "defaults to 'eigh')")
     ap.add_argument('--no_nms', action='store_true')
     ap.add_argument('--reg_init', type=float, default=None)
     ap.add_argument('--reg_decay', type=float, default=None)
@@ -50,6 +63,11 @@ def main(argv=None):
     ap.add_argument('--delta0', type=float, default=None,
                     help='nms_initial_step_size_factor (0 = merit-check every step '
                          'incl. the first)')
+    ap.add_argument('--reference_faithful', action='store_true',
+                    help="approximate game only: the reference study's configuration "
+                         "(no input-rate rows, frozen-P 'once' cadence, reg=1e2*0.95^k, "
+                         "NMS frequency 10, delta0=20, 500 iterations, absolute "
+                         "tolerances)")
     ap.add_argument('--out', default='results')
     ap.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
     ap.add_argument('--dtype', default='float32', choices=['float32', 'float64'])
@@ -57,10 +75,16 @@ def main(argv=None):
                     help='skip configs whose output pickle already exists')
     args = ap.parse_args(argv)
 
-    if args.scenario not in PORTED_SCENARIOS:
-        print(f'scenario {args.scenario} is not ported yet', file=sys.stderr)
+    approx = args.formulation == 'approximate'
+    # the approximate formulation is the kinematic duel's whatever --scenario says, but
+    # the dynamic-bicycle one (not ported yet)
+    if args.scenario == 'dynamic' if approx else args.scenario not in PORTED_SCENARIOS:
+        print(f'scenario {args.scenario} ({args.formulation}) is not ported yet',
+              file=sys.stderr)
         sys.exit(2)
-    if args.solver not in PORTED_SOLVERS:
+    # the approximate formulation runs DGSQPV2FrenetApprox for every solver but the
+    # MCP oracle, as the JAX script does
+    if args.solver not in PORTED_SOLVERS and not (approx and args.solver != 'mcp'):
         print(f'solver {args.solver} batched study not wired yet', file=sys.stderr)
         sys.exit(2)
 
@@ -68,33 +92,88 @@ def main(argv=None):
 
     from dgsqp_torch.harness.mc_study import analyze_results, run_mc_study, save_results
     from dgsqp_torch.harness.scenarios import (build_agents_scenario,
+                                               build_approximate_duel,
                                                build_chicane_scenario,
-                                               build_curve_scenario)
+                                               build_curve_scenario, build_exact_duel)
     from dgsqp_torch.solvers.dgsqp_v2 import DGSQPV2
+    from dgsqp_torch.solvers.dgsqp_v2_frenet import DGSQPV2FrenetApprox
     from dgsqp_torch.solvers.solver_types import DGSQPParams, DGSQPV2Params
 
     dtype = getattr(torch, args.dtype)
     # the bench's rule (``build_bench_solver``): the parameters' default of 1e-8 is below
     # what a float32 QP can certify, and a QP that misses it counts as failed
     qp_tol = 1e-8 if dtype == torch.float64 else 3e-7
-    if args.scenario == 'chicane':
+    if approx:
+        scenario = build_approximate_duel(N=args.N,
+                                          rate_constraints=not args.reference_faithful)
+    elif args.scenario == 'duel':
+        scenario = build_exact_duel(N=args.N)
+    elif args.scenario == 'chicane':
         scenario = build_chicane_scenario(N=args.N, theta_deg=args.theta)
     elif args.scenario == 'curve':
         scenario = build_curve_scenario(N=args.N, theta_deg=max(args.theta, 60.0))
     else:
         scenario = build_agents_scenario(M=args.agents, N=args.N, theta_deg=args.theta)
 
-    reg_tag = ''
+    reg_tag = '_ref' if args.reference_faithful else ''
     if args.reg_init is not None or args.reg_decay is not None:
         reg_tag = f'_reg{args.reg_init if args.reg_init is not None else "d"}' \
                   f'_decay{args.reg_decay if args.reg_decay is not None else "d"}'
-    out_name = Path(args.out) / (f'{scenario.name}_{args.solver}_exact'
+        if approx:
+            reg_tag += f'_{args.eval_type}'
+    out_name = Path(args.out) / (f'{scenario.name}_{args.solver}_{args.formulation}'
                                  f'{reg_tag}_n{args.n}_s{args.seed}.pkl')
     if args.skip_existing and out_name.exists():
         print(f'skip (exists): {out_name}', file=sys.stderr)
         return
 
-    if args.solver == 'dgsqp':
+    def nms_overrides(params):
+        if args.reg_init is not None:
+            params.reg = args.reg_init
+        if args.reg_decay is not None:
+            params.reg_decay = args.reg_decay
+        if args.nms_frequency is not None:
+            params.nms_frequency = args.nms_frequency
+        if args.nms_memory is not None:
+            params.nms_memory_size = args.nms_memory
+        if args.delta0 is not None:
+            params.nms_initial_step_size_factor = args.delta0
+
+    if approx:
+        if args.reference_faithful:
+            # the reference study's own knobs: frozen-P cadence, heavy decaying proximal
+            # regularisation, blind d-steps, absolute tolerances
+            params = DGSQPV2Params(N=scenario.N, dt=scenario.dt,
+                                   sqp_iters=max(args.sqp_iters, 500),
+                                   p_tol=args.p_tol, d_tol=args.d_tol,
+                                   merit_function=args.merit_function,
+                                   merit_decrease_condition=args.merit_decrease_condition,
+                                   approximation_eval=('once' if args.eval_type == 'exact'
+                                                       else args.eval_type),
+                                   reg=1e2, reg_decay=0.95, nms_frequency=10,
+                                   nms_memory_size=10, nms_initial_step_size_factor=20.0,
+                                   conv_scaled_stat=False, conv_method=args.conv or 'eigh',
+                                   nms=not args.no_nms, qp_tol=qp_tol)
+        else:
+            # the measured MPCC operating point: every step merit-checked (frequency 1,
+            # delta0 0), constant reg 1, gradient-scaled KKT tolerance
+            params = DGSQPV2Params(N=scenario.N, dt=scenario.dt,
+                                   sqp_iters=max(args.sqp_iters, 150), p_tol=args.p_tol,
+                                   d_tol=args.d_tol, merit_function=args.merit_function,
+                                   merit_decrease_condition=args.merit_decrease_condition,
+                                   approximation_eval=args.eval_type,
+                                   reg=1.0, reg_decay=1.0, nms_frequency=1,
+                                   nms_memory_size=10, nms_initial_step_size_factor=0.0,
+                                   conv_scaled_stat=True, conv_method=args.conv or 'eigh',
+                                   nms=not args.no_nms, qp_tol=qp_tol)
+        nms_overrides(params)
+        solver = DGSQPV2FrenetApprox(scenario.joint_model, scenario.costs,
+                                     scenario.agent_constraints,
+                                     scenario.shared_constraints, scenario.bounds,
+                                     params, print_method=None, dtype=dtype,
+                                     device=args.device)
+        res = run_mc_study(scenario, num_samples=args.n, seed=args.seed, solver=solver)
+    elif args.solver == 'dgsqp':
         params = DGSQPParams(N=scenario.N, dt=scenario.dt, reg=1e-3, nonmono_ls=True,
                              line_search_iters=50, sqp_iters=args.sqp_iters,
                              p_tol=args.p_tol, d_tol=args.d_tol, beta=0.01, tau=0.5,
@@ -109,16 +188,7 @@ def main(argv=None):
                                merit_function=args.merit_function,
                                merit_decrease_condition=args.merit_decrease_condition,
                                nms=not args.no_nms, qp_tol=qp_tol)
-        if args.reg_init is not None:
-            params.reg = args.reg_init
-        if args.reg_decay is not None:
-            params.reg_decay = args.reg_decay
-        if args.nms_frequency is not None:
-            params.nms_frequency = args.nms_frequency
-        if args.nms_memory is not None:
-            params.nms_memory_size = args.nms_memory
-        if args.delta0 is not None:
-            params.nms_initial_step_size_factor = args.delta0
+        nms_overrides(params)
         res = run_mc_study(scenario, solver_params=params, num_samples=args.n,
                            seed=args.seed, solver_cls=DGSQPV2, dtype=dtype,
                            device=args.device)

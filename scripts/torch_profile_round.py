@@ -2,14 +2,15 @@
 """Where one round of the port's main path spends its time, on one NVIDIA GPU.
 
 Builds the bench problem (chicane duel, N=25, batch 256, seed 0, float32, DGSQP v1 or,
-with ``--solver v2``, DGSQP v2) with ``dgsqp_torch`` and times, with host clocks around
-work that ends in a ``torch.cuda.synchronize()``:
+with ``--solver v2``, DGSQP v2; with ``--solver approx`` the approximate MPCC duel,
+n=150, solved by ``DGSQPV2FrenetApprox`` in its ``'exact'`` mode) with ``dgsqp_torch``
+and times, with host clocks around work that ends in a ``torch.cuda.synchronize()``:
 
 * each piece of a round at the full batch: ``evaluate`` (Q, q, G, g by
   forward-over-reverse AD), the convexified QP (Newton-Schulz + ``solve_qp``, with the
   Cholesky kernels), a line search of all trials (``merit_terms`` on batch x 20 for v1,
-  batch x 50 for v2), and the first-derivative ``evaluate`` (``finalize`` of v1; the
-  full-step trial of a v2 m-step);
+  batch x 50 for v2, batch x 10 for approx), and the first-derivative ``evaluate``
+  (``finalize`` of v1; the full-step trial of a v2 m-step);
 * whole rounds from the initial carry (v1: the flat machine; v2: with the number of
   games for which the round ran the full-step trial and the line search, since a v2
   round runs them only for the games that take an m-step);
@@ -19,7 +20,7 @@ work that ends in a ``torch.cuda.synchronize()``:
 
 Usage (from the repository root, on the machine with the card):
 
-    python3 scripts/torch_profile_round.py [--solver v1|v2] [--batch 256] [--rounds 6]
+    python3 scripts/torch_profile_round.py [--solver v1|v2|approx] [--batch 256] [--rounds 6]
 
 Prints one JSON object; with ``--out PATH`` also writes it there.
 """
@@ -35,7 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument('--solver', default='v1', choices=['v1', 'v2'])
+    ap.add_argument('--solver', default='v1', choices=['v1', 'v2', 'approx'])
     ap.add_argument('--batch', type=int, default=256)
     ap.add_argument('--horizon', type=int, default=25)
     ap.add_argument('--rounds', type=int, default=6)
@@ -51,7 +52,7 @@ def main():
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True, text=True,
                           timeout=60).stdout.strip()
-    v2 = args.solver == 'v2'
+    v2 = args.solver in ('v2', 'approx')
     sc, sol = build_bench_solver(horizon=args.horizon, solver_name=args.solver,
                                  dtype=torch.float32, device='cuda')
     u0, l0, x0, up = build_bench_batch(sc, sol, args.batch, seed=0)
@@ -86,9 +87,12 @@ def main():
     }
 
     from dgsqp_torch.ops import linalg
-    linalg.cholesky.launches = linalg.cho_solve.launches = 0
+    for wrapper in (linalg.cholesky, linalg.cho_solve):
+        wrapper.launches, wrapper.launches_by_n = 0, {}
     qp()
-    qp_launches = {'chol': linalg.cholesky.launches, 'cho_solve': linalg.cho_solve.launches}
+    qp_launches = {'chol': linalg.cholesky.launches, 'cho_solve': linalg.cho_solve.launches,
+                   'by_n': {'chol': dict(linalg.cholesky.launches_by_n),
+                            'cho_solve': dict(linalg.cho_solve.launches_by_n)}}
 
     # games for which a v2 round ran the full-step trial and the line search
     rows = {'_eval_lite': 0, '_line_search': 0}

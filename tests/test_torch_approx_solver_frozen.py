@@ -1,0 +1,13 @@
+"""Port parity for ``DGSQPV2FrenetApprox`` on the CPU in float64 in the frozen-P
+modes: ``'once'`` (the linearisation recomputed once per SQP iteration) and ``'always'``
+(also at every trial point), as ``check_solver_matches_jax`` of
+``test_torch_approx_solver.py`` states.
+"""
+import pytest
+
+from test_torch_approx_solver import check_solver_matches_jax
+
+
+@pytest.mark.parametrize('mode', ['once', 'always'])
+def test_frozen_mode_solver_matches_jax(mode):
+    check_solver_matches_jax(mode)

@@ -22,9 +22,12 @@ def test_cuda_wrappers_count_launches_and_reject_bad_layout(dtype):
     A = (torch.eye(8, dtype=dtype, device='cuda') * 4.0).expand(3, 8, 8).contiguous()
     b = torch.ones(3, 8, dtype=dtype, device='cuda')
     n_chol, n_solve = linalg.cholesky.launches, linalg.cho_solve.launches
+    by_n = (linalg.cholesky.launches_by_n.get(8, 0), linalg.cho_solve.launches_by_n.get(8, 0))
     L = linalg.cholesky(A)
     x = linalg.cho_solve(L, b)
     assert (linalg.cholesky.launches, linalg.cho_solve.launches) == (n_chol + 1, n_solve + 1)
+    assert (linalg.cholesky.launches_by_n[8], linalg.cho_solve.launches_by_n[8]) \
+        == (by_n[0] + 1, by_n[1] + 1)
     assert torch.equal(L, 2.0 * torch.eye(8, dtype=dtype, device='cuda').expand(3, 8, 8))
     assert torch.equal(x, torch.full_like(b, 0.25))
     with pytest.raises(ValueError):
@@ -104,6 +107,38 @@ def test_v2_round_on_the_card_launches_both_kernels_and_matches_cpu_float64():
     assert int(c_d.it.min()) == 1 and not torch.equal(c_d.u, c_d0.u)
     for f, tol in (('memory', DERIV_RTOL), ('p_feas', DERIV_RTOL), ('comp', DERIV_RTOL),
                    ('stat', DERIV_RTOL), ('u', STEP_RTOL), ('delta', STEP_RTOL)):
+        a, b = getattr(c_d, f).to('cpu', torch.float64), getattr(c_c, f)
+        finite = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), finite), f
+        assert rel_err(a[finite], b[finite]) <= tol, f
+
+
+@pytest.mark.cuda
+def test_approx_round_on_the_card_launches_both_kernels_and_matches_cpu_float64():
+    """One round of ``DGSQPV2FrenetApprox`` (the ``approx`` bench solver, n = 150) on 4
+    games: float32 on the card against float64 on the CPU, within the tolerances of
+    ``chip_smoke.py``'s parity phases."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    from chip_smoke import DERIV_RTOL, STEP_RTOL, rel_err
+    from dgsqp_torch.harness.bench_setup import build_bench_batch, build_bench_solver
+    sc, sol_d = build_bench_solver(horizon=25, solver_name='approx', dtype=torch.float32,
+                                   device='cuda')
+    _, sol_c = build_bench_solver(horizon=25, solver_name='approx', scenario=sc,
+                                  dtype=torch.float64, device='cpu')
+    assert sol_d.n_dec == 150
+    batch_d = build_bench_batch(sc, sol_d, 4, seed=0)
+    batch_c = tuple(a.to('cpu', torch.float64) for a in batch_d)
+    c_d0 = sol_d._init_carry(*batch_d)
+    n_chol, n_solve = linalg.cholesky.launches, linalg.cho_solve.launches
+    c_d = sol_d._make_body(batch_d[2], batch_d[3])(c_d0)
+    assert linalg.cholesky.launches > n_chol and linalg.cho_solve.launches > n_solve
+    c_c = sol_c._make_body(batch_c[2], batch_c[3])(sol_c._init_carry(*batch_c))
+    for f in ('status', 'it', 'm_it', 'qp_solves', 'ck_counter', 'ck_valid', 'ck_fresh'):
+        assert torch.equal(getattr(c_d, f).cpu(), getattr(c_c, f)), f
+    assert int(c_d.it.min()) == 1 and not torch.equal(c_d.u, c_d0.u)
+    for f, tol in (('memory', DERIV_RTOL), ('p_feas', DERIV_RTOL), ('stat', DERIV_RTOL),
+                   ('u', STEP_RTOL)):
         a, b = getattr(c_d, f).to('cpu', torch.float64), getattr(c_c, f)
         finite = torch.isfinite(b)
         assert torch.equal(torch.isfinite(a), finite), f
