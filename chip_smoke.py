@@ -15,7 +15,8 @@ Phases, each printing one line on stdout:
    shapes that reach the other branches of the kernels (an odd size, n = 150,
    right-hand-side counts on each side of the switch between the two ``cho_solve``
    kernels and off the tile width), the approximate duel's n = 150 with its 96-row
-   polish, and on a batch with one matrix that is not positive definite; and times the kernel (device time from a replayed CUDA graph, and the time
+   polish, IBR's best response's n = 50 with its 48-row polish, and on a batch with one
+   matrix that is not positive definite; and times the kernel (device time from a replayed CUDA graph, and the time
    per call of a loop of eager calls), the plain version and the library call that
    computes the same function.
 3. ``parity``: one round of ``evaluate`` + convexified QP on 16 games of the seed-0
@@ -36,11 +37,25 @@ Phases, each printing one line on stdout:
 8. ``approx_path``: that batch (256 games, seed 0, float32) solved by
    ``DGSQPV2FrenetApprox`` with ``solve_batch_chunked(chunk_iters=4)``, compaction on,
    after the same warm-up, with the launch counts, m-step counts and buckets.
+9. ``oracle_path``: the equilibrium-match study of the chicane (theta=45 deg, N=25,
+   n=100, m=525) in float64, seed 0, 128 games: ``run_mc_study`` with DGSQP v1's study
+   defaults and with the PATH-role MCP oracle (``PATHMCP``, ``method='hybrid'``,
+   tol 1e-3, 200 iterations, 4 restarts), then ``gne_compare`` of the two (input scale
+   2.1/0.436 per agent, match tolerance 0.1, conv_abs only), beside the JAX package's
+   record of the same games (``docs/match_dgsqp_mcp_chicane_N25_r5.json``).
+10. ``ibr_ws``: one batched IBR sweep (``IBRParams(ibr_iters=1, p_tol=d_tol=1e-3)``, the
+   study's ``ibr_ws`` warm start) on the 256-game float32 bench batch: both kernels at
+   the best response's n = 50 (and its polish's 48 rows).
+11. ``algames_path``: ``run_mc_study_algames`` on the same chicane in float64 (n_y = 1000
+   decisions a game) on the first 8 of the ``oracle_path``'s games, compared with its
+   DGSQP by ``gne_compare``.
 
-The launch counts are set to 0 just before each of the four paths and read just after;
-each path fails if a kernel was not launched in it.  Then one JSON line of per-kernel
-numbers (``launches`` is the count of ``v2_path``, ``launches_by_path`` has all four),
-and last ``{"ok": true, "device": ...}``.
+The launch counts are set to 0 just before each path and read just after; each path
+that runs the kernels fails if one was not launched in it.  Then one JSON line of
+per-kernel numbers (``launches`` is the count of ``v2_path``, ``launches_by_path`` has
+every path), and last ``{"ok": true, "device": ...}``.  Every line also goes to
+``build/chip_smoke.jsonl`` (the kernels line alone is longer than a caller may see of
+the output's tail).
 Any failed check raises and the script exits non-zero; without a card it exits
 non-zero before printing any result.
 """
@@ -48,6 +63,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and dense arithmetic outside the
 # tensor cores (float32 67 TFLOP/s, float64 34 TFLOP/s)
@@ -82,10 +98,33 @@ WARMUP_GAMES = 16
 MC_AGENTS, MC_HORIZON, MC_SAMPLES = 3, 6, 16
 MC_PARAMS = dict(sqp_iters=30, p_tol=1e-3, d_tol=1e-3, reg=1e-3, reg_decay=1.0,
                  nms_frequency=5, nms_memory_size=5, stall_its=10, line_search_iters=20)
+# the equilibrium-match study: its games, the options of its comparison and the JAX
+# package's float64 record of the same games (DGSQP 78 conv_abs, MCP 68, both 63, all
+# 63 matched); the limits leave room for rounding flips on ill-posed QPs and sit far
+# above what a broken solver reaches (records: 0.609 and 0.531 conv_abs)
+ORACLE_GAMES, ORACLE_SEED = 128, 0
+ORACLE_COMPARE = dict(N=25, num_ua=[2, 2], input_scale=[2.1, 0.436, 2.1, 0.436],
+                      match_tol=0.1, success='abs')
+ORACLE_RECORD = dict(converged_a=78, converged_b=68, both_converged=63, match=63,
+                     nmse_max=2.926231472253517e-05)
+ORACLE_MATCH_MIN, ORACLE_MCP_CONV_MIN, ORACLE_DGSQP_CONV_MIN = 0.95, 0.40, 0.50
+# the IBR sweep of the study's warm start: the best response's decisions and polish rows
+IBR_KERNEL_NS = (50, 48)
+# ALGAMES on the first games of the oracle study (8: the first cut the time limit asked
+# for; a Newton iteration is host-bound, so 16 games cost about 1.6x as long); its match
+# with DGSQP is checked when at least ALGAMES_MIN_BOTH games converge in both
+ALGAMES_GAMES, ALGAMES_MATCH_MIN, ALGAMES_MIN_BOTH = 8, 0.9, 4
+
+
+# every emitted line also goes to this file (the output's tail is all a caller may see)
+LOG = Path(__file__).resolve().parent / 'build' / 'chip_smoke.jsonl'
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(LOG, 'a') as f:
+        f.write(line + '\n')
 
 
 def gpu_name_and_limit() -> str:
@@ -201,12 +240,14 @@ def phase_kernels(device='cuda', shapes=None, time_it=True):
     gen = torch.Generator(device=device).manual_seed(0)
     shapes = shapes or {
         'chol': [(256, 100, 0), (256, 64, 0), (5, 37, 0), (64, 150, 0),
-                 (16, 36, 0), (16, 48, 0), (256, 150, 0), (256, 96, 0)],
+                 (16, 36, 0), (16, 48, 0), (256, 150, 0), (256, 96, 0), (256, 50, 0),
+                 (256, 48, 0)],
         'cho_solve': [(256, 100, 1), (256, 100, 64), (256, 64, 1), (5, 37, 3), (256, 100, 8),
                       (256, 100, linalg.WARP_PATH_MAX_K), (256, 100, linalg.WARP_PATH_MAX_K + 1),
                       (256, 100, 33), (5, 37, 33), (64, 150, 1), (64, 150, 64),
                       (16, 36, 1), (16, 36, 36), (16, 36, 48), (16, 48, 1),
-                      (256, 150, 1), (256, 150, 96), (256, 96, 1)]}
+                      (256, 150, 1), (256, 150, 96), (256, 96, 1), (256, 50, 1),
+                      (256, 50, 48), (256, 48, 1)]}
     rows = []
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split('.')[-1]
@@ -459,6 +500,155 @@ def phase_mc_study():
     return launches
 
 
+def _pcts(t):
+    import numpy as np
+    v = t.double().cpu().numpy()
+    return {'p50': float(np.median(v)), 'p90': float(np.percentile(v, 90))}
+
+
+def phase_oracle_path():
+    """The DGSQP-vs-MCP equilibrium-match study at full width, float64 on the card."""
+    import numpy as np
+    import torch
+    from dgsqp_torch.harness.analysis import gne_compare
+    from dgsqp_torch.harness.mc_study import analyze_results, run_mc_study
+    from dgsqp_torch.harness.scenarios import build_chicane_scenario
+    from dgsqp_torch.solvers.mcp import PATHMCP
+    from dgsqp_torch.solvers.solver_types import PATHMCPParams
+    sc = build_chicane_scenario(N=25, theta_deg=45.0)
+    reset_launches()
+    t0 = time.time()
+    dg = run_mc_study(sc, num_samples=ORACLE_GAMES, seed=ORACLE_SEED, dtype=torch.float64)
+    dg_s = time.time() - t0
+    mcp = PATHMCP(sc.joint_model, sc.costs, sc.agent_constraints, sc.shared_constraints,
+                  sc.bounds, PATHMCPParams(N=sc.N, dt=sc.dt, tol=1e-3, method='hybrid',
+                                           max_iters=200, max_restarts=4),
+                  print_method=None, dtype=torch.float64)
+    t0 = time.time()
+    mc = run_mc_study(sc, num_samples=ORACLE_GAMES, seed=ORACLE_SEED, solver=mcp)
+    mc_s = time.time() - t0
+    launches, launches_by_n = read_launches(), read_launches_by_n()
+    rep = gne_compare(dg, mc, **ORACLE_COMPARE)
+    conv_dg = float(rep['converged_a'] / ORACLE_GAMES)
+    conv_mc = float(rep['converged_b'] / ORACLE_GAMES)
+    emit({'phase': 'oracle_path', 'scenario': sc.name, 'games': ORACLE_GAMES,
+          'n_dec': mcp.n_dec, 'n_c': mcp.n_c, 'dtype': 'float64',
+          'dgsqp': analyze_results(dg), 'mcp': analyze_results(mc),
+          'dgsqp_seconds': dg_s, 'mcp_seconds': mc_s,
+          'dgsqp_solve_s': dg.wall_time_s, 'mcp_solve_s': mc.wall_time_s,
+          'mcp_iters_p50': float(np.median(mc.iters)), 'mcp_iters_max': int(mc.iters.max()),
+          'dgsqp_conv_abs': conv_dg, 'mcp_conv_abs': conv_mc,
+          'gne_compare': rep, 'record': ORACLE_RECORD,
+          'limits': {'match_rate_of_both': ORACLE_MATCH_MIN,
+                     'mcp_conv_abs': ORACLE_MCP_CONV_MIN,
+                     'dgsqp_conv_abs': ORACLE_DGSQP_CONV_MIN},
+          'launches': launches, 'launches_by_n': launches_by_n,
+          'status_string_dgsqp': ''.join(str(int(s)) for s in dg.statuses),
+          'status_string_mcp': ''.join(str(int(s)) for s in mc.statuses)})
+    problems = []
+    if not np.array_equal(dg.x0, mc.x0):
+        problems.append('the two studies sampled different games')
+    if not all(v > 0 for v in launches.values()):
+        problems.append(f'a kernel was not launched on oracle_path: {launches}')
+    if (mc.statuses == 0).any() or (dg.statuses == 0).any():
+        problems.append('games still running')
+    if not np.isfinite(mc.u_sol).all() or not np.isfinite(dg.u_sol).all():
+        problems.append('non-finite solutions')
+    if rep['match_rate_of_both'] < ORACLE_MATCH_MIN:
+        problems.append(f"match rate {rep['match_rate_of_both']:.3f} < {ORACLE_MATCH_MIN}")
+    if conv_mc < ORACLE_MCP_CONV_MIN or conv_dg < ORACLE_DGSQP_CONV_MIN:
+        problems.append(f'conv_abs MCP {conv_mc:.3f} / DGSQP {conv_dg:.3f} below '
+                        f'{ORACLE_MCP_CONV_MIN} / {ORACLE_DGSQP_CONV_MIN}')
+    if problems:
+        raise AssertionError('oracle_path: ' + '; '.join(problems))
+    return sc, dg, launches
+
+
+def phase_ibr_ws(sc, batch):
+    """One batched IBR sweep of the study's warm start on the bench batch (float32)."""
+    import torch
+    from dgsqp_torch.solvers.ibr import IBR
+    from dgsqp_torch.solvers.solver_types import IBRParams
+    u0, _, x0, up = batch
+    ibr = IBR(sc.joint_model, sc.costs, sc.agent_constraints, sc.shared_constraints,
+              sc.bounds, IBRParams(N=sc.N, dt=sc.dt, ibr_iters=1, p_tol=1e-3, d_tol=1e-3),
+              print_method=None, dtype=u0.dtype, device=u0.device)
+    reset_launches()
+    t0 = time.time()
+    res = ibr._solve_core(u0, x0, up)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches, launches_by_n = read_launches(), read_launches_by_n()
+    kkt = {a: _pcts(k) for a, k in ibr.last_br_kkt.items()}
+    its = {a: {'p50': float(it.double().median()), 'max': int(it.max())}
+           for a, it in ibr.last_br_iters.items()}
+    emit({'phase': 'ibr_ws', 'games': int(u0.shape[0]), 'dtype': str(u0.dtype),
+          'n_br': [s1 - s0 for s0, s1 in ibr.ua_slices], 'seconds': seconds,
+          'launches': launches, 'launches_by_n': launches_by_n, 'br_kkt': kkt,
+          'br_sqp_iters': its, 'delta': _pcts(res.delta),
+          'converged': int(res.converged.sum())})
+    problems = []
+    missing = [(name, n) for name in launches_by_n for n in IBR_KERNEL_NS
+               if not launches_by_n[name].get(n)]
+    if missing:
+        problems.append(f'kernels not launched at these sizes: {missing}')
+    if not bool(torch.isfinite(res.u).all()) or not bool(torch.isfinite(res.delta).all()) \
+            or not all(bool(torch.isfinite(k).all()) for k in ibr.last_br_kkt.values()):
+        problems.append('non-finite results')
+    if problems:
+        raise AssertionError('ibr_ws: ' + '; '.join(problems))
+    return launches
+
+
+def phase_algames_path(sc, dg):
+    """``run_mc_study_algames`` on the first games of the oracle study's draw (the
+    sampler draws in rounds sized by the sample count, so the study samples the oracle's
+    128 and keeps the first ``ALGAMES_GAMES``), float64, against its DGSQP."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from dgsqp_torch.harness import mc_study
+    from dgsqp_torch.harness.analysis import gne_compare
+    sample = mc_study._sample
+
+    def oracle_head(scenario, num_samples, seed, dtype, device):
+        return tuple(a[:num_samples] for a in sample(scenario, ORACLE_GAMES, seed, dtype,
+                                                     device))
+
+    mc_study._sample = oracle_head
+    t0 = time.time()
+    try:
+        al = mc_study.run_mc_study_algames(sc, num_samples=ALGAMES_GAMES, seed=ORACLE_SEED,
+                                           dtype=torch.float64)
+    finally:
+        mc_study._sample = sample
+    seconds = time.time() - t0
+    head = lambda a: a[:ALGAMES_GAMES]
+    dg16 = dataclasses.replace(dg, num_samples=ALGAMES_GAMES, statuses=head(dg.statuses),
+                               iters=head(dg.iters), qp_solves=head(dg.qp_solves),
+                               p_feas=head(dg.p_feas), comp=head(dg.comp),
+                               stat=head(dg.stat), u_sol=head(dg.u_sol), x0=head(dg.x0))
+    rep = gne_compare(dg16, al, layout_b='stage', **ORACLE_COMPARE)
+    emit({'phase': 'algames_path', 'games': ALGAMES_GAMES, 'dtype': 'float64',
+          'n_y': sc.N * (sc.joint_model.n_q + sc.joint_model.n_u)
+                 + sc.joint_model.n_a * sc.N * sc.joint_model.n_q,
+          'seconds': seconds, 'solve_s': al.wall_time_s, 'warmup_s': al.compile_time_s,
+          'statuses': ''.join(str(int(s)) for s in al.statuses),
+          'outer_iters': al.iters.tolist(), 'newton_solves': al.qp_solves.tolist(),
+          'stat': al.stat.tolist(), 'p_feas': al.p_feas.tolist(),
+          'gne_compare_vs_dgsqp': rep})
+    problems = []
+    if not np.array_equal(al.x0, dg16.x0):
+        problems.append('ALGAMES sampled other games than the oracle study')
+    if not np.isfinite(al.u_sol).all() or not np.isfinite(al.stat).all():
+        problems.append('non-finite results')
+    if rep['both_converged'] >= ALGAMES_MIN_BOTH and \
+            rep['match_rate_of_both'] < ALGAMES_MATCH_MIN:
+        problems.append(f"match rate {rep['match_rate_of_both']:.3f} < {ALGAMES_MATCH_MIN}")
+    if problems:
+        raise AssertionError('algames_path: ' + '; '.join(problems))
+
+
 def kernel_summary(rows, launches_by_path):
     """The per-kernel line: numbers at the main shape (float32), all shapes beside."""
     meta = {
@@ -496,6 +686,8 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    LOG.parent.mkdir(parents=True, exist_ok=True)
+    LOG.write_text('')
     t_start = time.time()
     phase_build()
     rows = phase_kernels()
@@ -525,6 +717,10 @@ def main():
         'approx_path', 'approx', sol_ap, batch_ap, 0.0, APPROX_CONV_ANY_MIN,
         metric='approx_duel_solves_per_s', n_dec=APPROX_N_DEC,
         conv_abs_limit=APPROX_CONV_ABS_LIMIT, kernel_ns=APPROX_KERNEL_NS)['launches']
+
+    sc_or, dg, launches['oracle_path'] = phase_oracle_path()
+    launches['ibr_ws'] = phase_ibr_ws(sc, batch)
+    phase_algames_path(sc_or, dg)
 
     emit(kernel_summary(rows, launches))
     emit({'phase': 'total', 'seconds': time.time() - t_start})

@@ -4,9 +4,8 @@ One call samples all initial conditions, warm-starts them as one batch and solve
 whole batch in lockstep on one device.  ``analyze_results`` gives the study's statistics
 (success rate, iteration counts over converged samples, status counts).
 
-Not ported: sharding the batch over several GPUs (``n_devices`` other than ``None``/1),
-the IBR-refined warm start (``ibr_ws``) and the ALGAMES study; each raises
-``NotImplementedError``.
+Not ported: sharding the batch over several GPUs (``n_devices`` other than ``None``/1)
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,8 +27,11 @@ from dgsqp_torch.harness.warm_start import seed_virtual_rate_prev
 from dgsqp_torch.solvers.dgsqp import CONV_ABS, CONV_REL, DGSQP, STATUS_MSG
 from dgsqp_torch.solvers.solver_types import DGSQPParams
 
-# the games of the warm-up solve that precedes the timed one
+# the warm-up that precedes the timed solve (the kernels' build and first launches):
+# the shortest chunk, or for a solver without a chunked solve (the MCP oracle) one
+# iteration through the batched call's cap, on a few games
 _WARMUP_GAMES = 16
+_WARMUP_ITERS = 1
 
 
 @dataclass
@@ -46,8 +48,9 @@ class MCResults:
     u_sol: np.ndarray
     x0: np.ndarray
     wall_time_s: float
-    # time of the warm-up that precedes the timed solve (one chunk on a few games:
-    # the kernels' build and first launches); the JAX package records its compile time
+    # time of the warm-up that precedes the timed solve (the shortest chunk on a few
+    # games: the kernels' build and first launches); the JAX package records its
+    # compile time
     compile_time_s: float
     # self-describing run metadata (device, dtype, solver params + hash, git rev, seed)
     provenance: Optional[dict] = None
@@ -170,14 +173,18 @@ def run_mc_study(scenario, solver_params=None, num_samples: int = 200, seed: int
     ``device`` in ``dtype`` (or on the device and in the dtype of ``solver`` when one is
     given).
 
+    ``ibr_ws=True`` refines the PID warm start with one batched IBR (Gauss-Seidel
+    best-response) sweep before the dual warm start.
+
     ``dgsqp_ws_iters=K`` (solvers other than DGSQP v1) warm-starts the solver from a
     K-iteration DGSQP v1 prefix, primal and duals.
+
+    A solver with no ``solve_batch_chunked`` (the MCP oracle) runs its whole batched
+    solve (``solve_batch``); its warm-up is one iteration on a few games.
     """
     if n_devices not in (None, 1):
         raise NotImplementedError('sharding a study over several GPUs is not ported '
                                   '(ROADMAP item 10)')
-    if ibr_ws:
-        raise NotImplementedError('the IBR warm start is not ported (ROADMAP item 12)')
     if solver is None:
         if solver_params is None:
             solver_params = DGSQPParams(N=scenario.N, dt=scenario.dt, reg=1e-3,
@@ -196,6 +203,14 @@ def run_mc_study(scenario, solver_params=None, num_samples: int = 200, seed: int
     x0 = torch.as_tensor(x0_np, dtype=dtype, device=device)
     up = torch.zeros(num_samples, scenario.joint_model.n_u, dtype=dtype, device=device)
     up = seed_virtual_rate_prev(up, u_ws[:, 0, :], scenario.joint_model)
+    if ibr_ws:
+        from dgsqp_torch.solvers.ibr import IBR
+        from dgsqp_torch.solvers.solver_types import IBRParams
+        ibr = IBR(scenario.joint_model, scenario.costs, scenario.agent_constraints,
+                  scenario.shared_constraints, scenario.bounds,
+                  IBRParams(N=scenario.N, dt=scenario.dt, ibr_iters=1, p_tol=1e-3,
+                            d_tol=1e-3), print_method=None, dtype=dtype, device=device)
+        u0 = ibr._solve_core(u0, x0, up).u
     l0 = _dual_warm_start(solver, u0, x0, up)
     if dgsqp_ws_iters > 0 and not isinstance(solver, DGSQP):
         pre_params = DGSQPParams(N=scenario.N, dt=scenario.dt, reg=1e-3,
@@ -211,13 +226,21 @@ def run_mc_study(scenario, solver_params=None, num_samples: int = 200, seed: int
 
     sync = torch.cuda.synchronize if device.type == 'cuda' else (lambda: None)
     w = min(num_samples, _WARMUP_GAMES)
+    head = (u0[:w], l0[:w], x0[:w], up[:w])
+    if hasattr(solver, 'solve_batch_chunked'):
+        warm_up = lambda: solver.solve_batch_chunked(*head, chunk_iters=_WARMUP_ITERS,
+                                                     max_chunks=1)
+        batch_solve = lambda: solver.solve_batch_chunked(u0, l0, x0, up)
+    else:
+        warm_up = lambda: solver.solve_batch(*head, max_iters=_WARMUP_ITERS)
+        batch_solve = lambda: solver.solve_batch(u0, l0, x0, up)
     t0 = time.time()
-    solver.solve_batch_chunked(u0[:w], l0[:w], x0[:w], up[:w], max_chunks=1)
+    warm_up()
     sync()
     warmup = time.time() - t0
 
     t0 = time.time()
-    res = solver.solve_batch_chunked(u0, l0, x0, up)
+    res = batch_solve()
     sync()
     solve_time = time.time() - t0
 
@@ -225,7 +248,8 @@ def run_mc_study(scenario, solver_params=None, num_samples: int = 200, seed: int
     return MCResults(scenario=scenario.name, solver=type(solver).__name__,
                      num_samples=num_samples,
                      statuses=host(res.status), iters=host(res.iters),
-                     qp_solves=host(res.qp_solves), p_feas=host(res.p_feas),
+                     qp_solves=host(getattr(res, 'qp_solves', res.iters)),
+                     p_feas=host(res.p_feas),
                      comp=host(res.comp), stat=host(res.stat), u_sol=host(res.u),
                      x0=np.asarray(x0_np),
                      wall_time_s=solve_time, compile_time_s=warmup,
@@ -235,9 +259,55 @@ def run_mc_study(scenario, solver_params=None, num_samples: int = 200, seed: int
                                     dgsqp_ws_iters=int(dgsqp_ws_iters))))
 
 
-def run_mc_study_algames(scenario, params=None, num_samples: int = 200,
-                         seed: int = 0) -> MCResults:
-    raise NotImplementedError('the ALGAMES baseline is not ported (ROADMAP item 12)')
+def run_mc_study_algames(scenario, params=None, num_samples: int = 200, seed: int = 0,
+                         dtype=torch.float32, device='cuda') -> MCResults:
+    """Batched ALGAMES Monte-Carlo run on the same samples as the DGSQP studies, on
+    ``device`` in ``dtype``: the state warm start is the rollout of the sampled input
+    warm start, and ``qp_solves`` counts Newton solves."""
+    from dgsqp_torch.harness.scenarios import joint_constraints_for_algames
+    from dgsqp_torch.solvers.algames import ALGAMES
+    from dgsqp_torch.solvers.solver_types import ALGAMESParams
+
+    if params is None:
+        params = ALGAMESParams(N=scenario.N, dt=scenario.dt, outer_iters=50,
+                               newton_iters=50, line_search_iters=50,
+                               ineq_tol=1e-3, eq_tol=1e-3, opt_tol=1e-3, rho=1.0,
+                               gamma=10.0, beta=0.01, tau=0.5, q_reg=1e-3, u_reg=1e-3)
+    solver = ALGAMES(scenario.joint_model, scenario.costs,
+                     joint_constraints_for_algames(scenario), scenario.bounds,
+                     params, print_method=None, dtype=dtype, device=device)
+    device = solver.device
+
+    x0_np, u_ws, _, _ = _sample(scenario, num_samples, seed, dtype, device)
+    x0 = torch.as_tensor(x0_np, dtype=dtype, device=device)
+    u_ws = torch.as_tensor(u_ws, dtype=dtype, device=device)
+    # state warm start: roll the warm-start inputs through the joint dynamics
+    qs = [x0]
+    for k in range(scenario.N):
+        qs.append(scenario.joint_model.fd(qs[-1], u_ws[:, k]))
+    q_ws = torch.stack(qs, dim=1)
+    up = torch.zeros(num_samples, scenario.joint_model.n_u, dtype=dtype, device=device)
+
+    sync = torch.cuda.synchronize if device.type == 'cuda' else (lambda: None)
+    w = min(num_samples, _WARMUP_GAMES)
+    t0 = time.time()
+    solver.solve_batch_chunked(q_ws[:w], u_ws[:w], x0[:w], up[:w],
+                               chunk_iters=_WARMUP_ITERS, max_chunks=1)
+    sync()
+    warmup = time.time() - t0
+    t0 = time.time()
+    res = solver.solve_batch_chunked(q_ws, u_ws, x0, up)
+    sync()
+    solve_time = time.time() - t0
+
+    host = lambda t: t.cpu().numpy()
+    return MCResults(scenario=scenario.name, solver='ALGAMES', num_samples=num_samples,
+                     statuses=host(res.status), iters=host(res.iters),
+                     qp_solves=host(res.newton_solves), p_feas=host(res.p_feas),
+                     comp=host(res.comp), stat=host(res.stat),
+                     u_sol=host(res.u).reshape(num_samples, -1), x0=np.asarray(x0_np),
+                     wall_time_s=solve_time, compile_time_s=warmup,
+                     provenance=run_provenance(solver, seed=seed))
 
 
 def analyze_results(results: MCResults) -> dict:

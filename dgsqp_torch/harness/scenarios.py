@@ -1,7 +1,7 @@
 """Benchmark scenario factories, ported from ``dgsqp_tpu/harness/scenarios.py``
 (``Scenario``, ``build_racing_duel``, ``build_chicane_scenario``,
 ``build_curve_scenario``, ``build_agents_scenario``, ``build_approximate_duel``,
-``build_exact_duel``).
+``build_exact_duel``, ``joint_constraints_for_algames``).
 
 Costs and constraints are callables on tensors with any leading batch shape (the last
 dimension holds the state or input), so the game evaluates a group of stages in one call.
@@ -390,3 +390,57 @@ def build_exact_duel(track=None, N: int = 25, dt: float = 0.1,
                              u_a_rate=10.0, u_steer_rate=4.5, comp_linear=True,
                              drag_coefficient=0.0, slip_coefficient=0.0,
                              rate_constraints=True, name=name)
+
+
+def joint_constraints_for_algames(scenario):
+    """Concatenate per-agent and shared constraints into the joint stage lists ALGAMES
+    consumes: each stage's agent rows in agent order, then the shared rows."""
+    M = scenario.joint_model.n_a
+    offs = scenario.joint_model.u_offsets
+    N = scenario.N
+    shared = scenario.shared_constraints or [None] * (N + 1)
+
+    def make_stage(k):
+        fns = [(a, scenario.agent_constraints[a][k]) for a in range(M)
+               if scenario.agent_constraints[a] is not None
+               and scenario.agent_constraints[a][k] is not None]
+        sh = shared[k]
+        if not fns and sh is None:
+            return None
+
+        # a plain closure of three arguments: more would read as a P-parameterised one
+        def stage(x, u, um):
+            parts = [fn(x, u[..., offs[a]:offs[a + 1]], um[..., offs[a]:offs[a + 1]])
+                     for a, fn in fns]
+            if sh is not None:
+                parts.append(sh(x, u, um))
+            return torch.cat(parts, dim=-1)
+        return stage
+
+    def make_term():
+        fns = [scenario.agent_constraints[a][N] for a in range(M)
+               if scenario.agent_constraints[a] is not None
+               and scenario.agent_constraints[a][N] is not None]
+        sh = shared[N]
+        if not fns and sh is None:
+            return None
+
+        def term(x):
+            parts = [fn(x) for fn in fns]
+            if sh is not None:
+                parts.append(sh(x))
+            return torch.cat(parts, dim=-1)
+        return term
+
+    # stages with the same parts share one closure, so that they evaluate as one group
+    cache = {}
+
+    def stage_for(k):
+        key = (tuple(id(scenario.agent_constraints[a][k])
+                     if scenario.agent_constraints[a] is not None else None
+                     for a in range(M)), id(shared[k]))
+        if key not in cache:
+            cache[key] = make_stage(k)
+        return cache[key]
+
+    return [stage_for(k) for k in range(N)] + [make_term()]

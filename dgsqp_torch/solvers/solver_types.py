@@ -1,6 +1,6 @@
-"""Solver parameter dataclasses, a jax-free copy of ``DGSQPParams`` and
-``DGSQPV2Params`` from ``dgsqp_tpu/solvers/solver_types.py`` (field for field, same
-defaults).
+"""Solver parameter dataclasses, a jax-free copy of ``DGSQPParams``, ``DGSQPV2Params``,
+``ALGAMESParams``, ``IBRParams`` and ``PATHMCPParams`` from
+``dgsqp_tpu/solvers/solver_types.py`` (field for field, same defaults).
 
 CasADi/codegen knobs (``qp_interface``, ``code_gen``, ``jit`` ...) are kept as inert
 fields so configurations port unchanged.
@@ -106,3 +106,86 @@ class DGSQPV2Params(DGSQPParams):
     # max(1, ||q||_inf) at the current iterate.  Off by default (absolute residuals)
     conv_scaled_stat: bool = False
     save_qp_data: bool = False
+
+
+@dataclass
+class ALGAMESParams(ControllerConfig):
+    N: int = 10
+
+    rho: float = 1.0
+    gamma: float = 10.0
+    rho_max: float = 1e7
+    lam_max: float = 1e7
+
+    beta: float = 0.25
+    tau: float = 0.5
+
+    q_reg: float = 1e-2
+    u_reg: float = 1e-2
+    line_search_tol: float = 1e-6
+    newton_step_tol: float = 1e-6
+    ineq_tol: float = 1e-3
+    eq_tol: float = 1e-3
+    opt_tol: float = 1e-3
+
+    dynamics_hessians: bool = False
+
+    outer_iters: int = 50
+    line_search_iters: int = 50
+    newton_iters: int = 50
+
+    verbose: bool = False
+    solver_name: str = 'ALGAMES'
+
+    debug: bool = False
+    debug_plot: bool = False
+    pause_on_plot: bool = False
+    local_pos: bool = False
+
+
+@dataclass
+class IBRParams(ControllerConfig):
+    N: int = 10
+    ibr_iters: int = 1
+    use_ps: bool = False
+    p_tol: float = 1e-3
+    d_tol: float = 1e-3
+    line_search_iters: int = 50
+    verbose: bool = False
+    solver_name: str = 'IBR'
+    debug_plot: bool = False
+    pause_on_plot: bool = False
+    # inner best-response SQP controls
+    br_sqp_iters: int = 50
+    br_reg: float = 1e-3
+
+
+@dataclass
+class PATHMCPParams(ControllerConfig):
+    """Parameters of the semismooth-Newton MCP baseline (see ``solvers/mcp.py``)."""
+    N: int = 10
+    max_iters: int = 200
+    tol: float = 1e-8
+    verbose: bool = False
+    solver_name: str = 'MCP'
+    line_search_iters: int = 24
+    beta: float = 1e-4
+    tau: float = 0.5
+    reg: float = 1e-6              # initial Levenberg shift (adapted in-loop)
+    fb_lambda: float = 0.8         # penalized-FB weight (1.0 = plain FB)
+    nonmono_memory: int = 16       # nonmonotone Armijo reference window
+    stall_its: int = 6             # iterations without material progress -> restart
+    max_restarts: int = 4          # proximal-perturbation restart budget
+    pert0: float = 1e-2            # first restart's proximal perturbation
+    pert_decay: float = 0.5        # per-iteration perturbation decay
+    # smoothing continuation: the FB function starts at eps0 and shrinks toward the
+    # dtype's floor as the sharp residual falls
+    eps0: float = 1e-1
+    eps_decay: float = 0.7         # per-accepted-step multiplicative shrink
+    eps_frac: float = 0.05         # eps also capped at eps_frac * sharp residual
+    # 'fbnewton' = smoothed FB semismooth Newton; 'josephy' = the linearized MCP solved
+    # exactly per iteration (an indefinite QP); 'hybrid' = josephy, then fbnewton
+    method: str = 'fbnewton'
+    qp_tol: Optional[float] = None         # None -> dtype default (1e-8 / 3e-7)
+    qp_max_iters: int = 50
+    jos_gamma: float = 2.0         # residual-watchdog growth tolerance (josephy)

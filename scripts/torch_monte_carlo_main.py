@@ -4,8 +4,12 @@
 The counterpart of ``scripts/monte_carlo_main.py`` for what the port holds: one argparse
 entry point dispatching {scenario} x {solver} x {formulation}; each configuration is one
 batched solve on one device.  ``--formulation approximate`` solves the kinematic duel's
-approximate (MPCC) game with ``DGSQPV2FrenetApprox``; ``--scenario duel`` is the exact
-formulation of the same game.
+approximate (MPCC) game with ``DGSQPV2FrenetApprox`` (with ``--solver mcp``, the MCP
+oracle ``PATHMCPFrenetApprox``); ``--scenario duel`` is the exact formulation of the
+same game.  ``--solver mcp`` is the PATH-role oracle in its oracle configuration (the
+Josephy + FB hybrid; ``DGSQP_MCP_METHOD``, ``DGSQP_MCP_ITERS`` and
+``DGSQP_MCP_RESTARTS`` override its method, iteration budget and restarts), ``--solver
+algames`` the ALGAMES baseline; both run in float64 unless ``--dtype`` says otherwise.
 
 Examples:
     python scripts/torch_monte_carlo_main.py --scenario chicane --solver dgsqp --n 200
@@ -15,6 +19,9 @@ Examples:
         --n 8 --N 6
     python scripts/torch_monte_carlo_main.py --formulation approximate --n 256
     python scripts/torch_monte_carlo_main.py --scenario duel --solver dgsqp_v2
+    python scripts/torch_monte_carlo_main.py --scenario chicane --solver mcp --n 128
+    python scripts/torch_monte_carlo_main.py --scenario chicane --solver algames --n 16
+    python scripts/torch_monte_carlo_main.py --scenario chicane --solver dgsqp --ibr_ws
 """
 import sys
 from pathlib import Path
@@ -23,11 +30,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import argparse
 import json
 
-# choices of scripts/monte_carlo_main.py; those outside PORTED_* exit with code 2
+# choices of scripts/monte_carlo_main.py; scenarios outside PORTED_SCENARIOS exit with
+# code 2
 SCENARIOS = ['chicane', 'curve', 'merge', 'agents', 'dynamic', 'duel']
 SOLVERS = ['dgsqp', 'dgsqp_v2', 'algames', 'mcp']
 PORTED_SCENARIOS = ('chicane', 'curve', 'agents', 'duel')
-PORTED_SOLVERS = ('dgsqp', 'dgsqp_v2')
+# the oracles' default dtype: the AL penalty climbs to 1e7 and the MCP certifies a
+# 1e-3 residual of an ill-conditioned system, which float32 cannot carry
+ORACLES = ('algames', 'mcp')
 
 
 def main(argv=None):
@@ -63,6 +73,11 @@ def main(argv=None):
     ap.add_argument('--delta0', type=float, default=None,
                     help='nms_initial_step_size_factor (0 = merit-check every step '
                          'incl. the first)')
+    ap.add_argument('--dgsqp_ws', type=int, default=0,
+                    help='warm-start the oracle solver from a K-iteration DGSQP prefix '
+                         '(primal + duals); oracle certification stays its own')
+    ap.add_argument('--ibr_ws', action='store_true',
+                    help='refine the PID warm start with one batched IBR sweep')
     ap.add_argument('--reference_faithful', action='store_true',
                     help="approximate game only: the reference study's configuration "
                          "(no input-rate rows, frozen-P 'once' cadence, reg=1e2*0.95^k, "
@@ -70,7 +85,8 @@ def main(argv=None):
                          "tolerances)")
     ap.add_argument('--out', default='results')
     ap.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
-    ap.add_argument('--dtype', default='float32', choices=['float32', 'float64'])
+    ap.add_argument('--dtype', default=None, choices=['float32', 'float64'],
+                    help='float64 for --solver mcp|algames, float32 otherwise')
     ap.add_argument('--skip_existing', action='store_true',
                     help='skip configs whose output pickle already exists')
     args = ap.parse_args(argv)
@@ -82,11 +98,8 @@ def main(argv=None):
         print(f'scenario {args.scenario} ({args.formulation}) is not ported yet',
               file=sys.stderr)
         sys.exit(2)
-    # the approximate formulation runs DGSQPV2FrenetApprox for every solver but the
-    # MCP oracle, as the JAX script does
-    if args.solver not in PORTED_SOLVERS and not (approx and args.solver != 'mcp'):
-        print(f'solver {args.solver} batched study not wired yet', file=sys.stderr)
-        sys.exit(2)
+
+    import os
 
     import torch
 
@@ -99,7 +112,8 @@ def main(argv=None):
     from dgsqp_torch.solvers.dgsqp_v2_frenet import DGSQPV2FrenetApprox
     from dgsqp_torch.solvers.solver_types import DGSQPParams, DGSQPV2Params
 
-    dtype = getattr(torch, args.dtype)
+    dtype = getattr(torch, args.dtype or
+                    ('float64' if args.solver in ORACLES else 'float32'))
     # the bench's rule (``build_bench_solver``): the parameters' default of 1e-8 is below
     # what a float32 QP can certify, and a QP that misses it counts as failed
     qp_tol = 1e-8 if dtype == torch.float64 else 3e-7
@@ -139,7 +153,23 @@ def main(argv=None):
         if args.delta0 is not None:
             params.nms_initial_step_size_factor = args.delta0
 
-    if approx:
+    def mcp_params():
+        from dgsqp_torch.solvers.solver_types import PATHMCPParams
+        # the oracle configuration: the Josephy + FB hybrid (PATH's two regimes)
+        return PATHMCPParams(N=scenario.N, dt=scenario.dt, tol=args.p_tol,
+                             method=os.environ.get('DGSQP_MCP_METHOD', 'hybrid'),
+                             max_iters=int(os.environ.get('DGSQP_MCP_ITERS', 200)),
+                             max_restarts=int(os.environ.get('DGSQP_MCP_RESTARTS', 4)))
+
+    if approx and args.solver == 'mcp':
+        from dgsqp_torch.solvers.mcp import PATHMCPFrenetApprox
+        mcp = PATHMCPFrenetApprox(scenario.joint_model, scenario.costs,
+                                  scenario.agent_constraints, scenario.shared_constraints,
+                                  scenario.bounds, mcp_params(), print_method=None,
+                                  dtype=dtype, device=args.device)
+        res = run_mc_study(scenario, num_samples=args.n, seed=args.seed, solver=mcp,
+                           ibr_ws=args.ibr_ws, dgsqp_ws_iters=args.dgsqp_ws)
+    elif approx:
         if args.reference_faithful:
             # the reference study's own knobs: frozen-P cadence, heavy decaying proximal
             # regularisation, blind d-steps, absolute tolerances
@@ -181,7 +211,19 @@ def main(argv=None):
         if args.conv:
             params.conv_method = args.conv
         res = run_mc_study(scenario, solver_params=params, num_samples=args.n,
-                           seed=args.seed, dtype=dtype, device=args.device)
+                           seed=args.seed, dtype=dtype, device=args.device,
+                           ibr_ws=args.ibr_ws)
+    elif args.solver == 'algames':
+        from dgsqp_torch.harness.mc_study import run_mc_study_algames
+        res = run_mc_study_algames(scenario, num_samples=args.n, seed=args.seed,
+                                   dtype=dtype, device=args.device)
+    elif args.solver == 'mcp':
+        from dgsqp_torch.solvers.mcp import PATHMCP
+        mcp = PATHMCP(scenario.joint_model, scenario.costs, scenario.agent_constraints,
+                      scenario.shared_constraints, scenario.bounds, mcp_params(),
+                      print_method=None, dtype=dtype, device=args.device)
+        res = run_mc_study(scenario, num_samples=args.n, seed=args.seed, solver=mcp,
+                           ibr_ws=args.ibr_ws, dgsqp_ws_iters=args.dgsqp_ws)
     else:
         params = DGSQPV2Params(N=scenario.N, dt=scenario.dt, sqp_iters=args.sqp_iters,
                                p_tol=args.p_tol, d_tol=args.d_tol,
@@ -191,7 +233,7 @@ def main(argv=None):
         nms_overrides(params)
         res = run_mc_study(scenario, solver_params=params, num_samples=args.n,
                            seed=args.seed, solver_cls=DGSQPV2, dtype=dtype,
-                           device=args.device)
+                           device=args.device, ibr_ws=args.ibr_ws)
 
     stats = analyze_results(res)
     save_results(res, out_name)

@@ -143,3 +143,35 @@ def test_approx_round_on_the_card_launches_both_kernels_and_matches_cpu_float64(
         finite = torch.isfinite(b)
         assert torch.equal(torch.isfinite(a), finite), f
         assert rel_err(a[finite], b[finite]) <= tol, f
+
+
+@pytest.mark.cuda
+def test_frenet_approx_mcp_on_the_card_matches_cpu_float64():
+    """A few iterations of the MCP oracle on the approximate game
+    (``PATHMCPFrenetApprox``, ``method='hybrid'``, two iterations a phase) on 4 games
+    of the approximate duel (N = 10): float64 on the card against float64 on the CPU,
+    the same statuses and iterations, ``u``/``l`` within 1e-6 of their scale."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    from chip_smoke import rel_err
+    from dgsqp_torch.harness.mc_study import _dual_warm_start, _sample
+    from dgsqp_torch.harness.scenarios import build_approximate_duel
+    from dgsqp_torch.solvers.mcp import PATHMCPFrenetApprox
+    from dgsqp_torch.solvers.solver_types import PATHMCPParams
+    sc = build_approximate_duel(N=10)
+    params = PATHMCPParams(N=sc.N, dt=sc.dt, tol=1e-3, method='hybrid', max_iters=2)
+    solvers = [PATHMCPFrenetApprox(sc.joint_model, sc.costs, sc.agent_constraints,
+                                   sc.shared_constraints, sc.bounds, params,
+                                   print_method=None, dtype=torch.float64, device=dev)
+               for dev in ('cuda', 'cpu')]
+    x0, u_ws, _, _ = _sample(sc, 4, 0, torch.float64, 'cpu')
+    x0 = torch.as_tensor(x0)
+    u0 = solvers[1].problem.stage_to_u(torch.as_tensor(u_ws))
+    up = torch.zeros(4, sc.joint_model.n_u, dtype=torch.float64)
+    l0 = _dual_warm_start(solvers[1], u0, x0, up)
+    res_d = solvers[0].solve_batch(*(a.cuda() for a in (u0, l0, x0, up)))
+    res_c = solvers[1].solve_batch(u0, l0, x0, up)
+    assert torch.equal(res_d.status.cpu(), res_c.status)
+    assert torch.equal(res_d.iters.cpu(), res_c.iters) and int(res_c.iters.min()) > 0
+    for f in ('u', 'l', 'res'):
+        assert rel_err(getattr(res_d, f).cpu(), getattr(res_c, f)) <= 1e-6, f

@@ -31,10 +31,12 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert 'dgsqp_torch.solvers.dgsqp' in mods and 'dgsqp_torch.ops.linalg' in mods
     for new in ('solvers.dgsqp_v2', 'harness.mc_study', 'harness.analysis',
-                'solvers.dgsqp_v2_frenet', 'dynamics.progress_augmented', 'tracks.bspline'):
+                'solvers.dgsqp_v2_frenet', 'dynamics.progress_augmented', 'tracks.bspline',
+                'solvers.mcp', 'solvers.ibr', 'solvers.algames', 'solvers.backtrack'):
         assert f'dgsqp_torch.{new}' in mods
     scripts = [p.stem for p in SCRIPTS]
     assert 'torch_monte_carlo_main' in scripts and 'torch_profile_round' in scripts
+    assert 'torch_gne_compare_main' in scripts
     code = ('import importlib, sys\n'
             f'for m in {mods!r}:\n'
             '    importlib.import_module(m)\n'
@@ -66,11 +68,16 @@ def test_new_entry_points_default_to_the_card():
     from dgsqp_torch.harness.mc_study import run_mc_study
     from dgsqp_torch.harness.samplers import (sample_agents_initial_conditions,
                                               sample_duel_initial_conditions)
+    from dgsqp_torch.harness.mc_study import run_mc_study_algames
+    from dgsqp_torch.solvers.algames import ALGAMES
     from dgsqp_torch.solvers.dgsqp_v2 import DGSQPV2
     from dgsqp_torch.solvers.dgsqp_v2_frenet import DGSQPV2FrenetApprox
+    from dgsqp_torch.solvers.ibr import IBR
+    from dgsqp_torch.solvers.mcp import PATHMCP, PATHMCPFrenetApprox
     for fn in (build_bench_solver, run_mc_study, sample_agents_initial_conditions,
                sample_duel_initial_conditions, DGSQPV2.__init__,
-               DGSQPV2FrenetApprox.__init__):
+               DGSQPV2FrenetApprox.__init__, run_mc_study_algames, ALGAMES.__init__,
+               IBR.__init__, PATHMCP.__init__, PATHMCPFrenetApprox.__init__):
         params = inspect.signature(fn).parameters
         assert params['device'].default == 'cuda', fn
         assert 'dtype' in params, fn

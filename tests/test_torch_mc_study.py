@@ -12,8 +12,10 @@
   give the same output as the JAX package's on the same two ``MCResults`` (the study and
   the study after the retries), carried across field by field.
 * ``scripts/torch_monte_carlo_main.py --device cpu`` writes its ``.pkl`` and ``.json``;
-  a solver or scenario that is not ported exits with code 2; multi-GPU sharding, the
-  IBR warm start and the ALGAMES study raise ``NotImplementedError``.
+  a scenario that is not ported exits with code 2; multi-GPU sharding raises
+  ``NotImplementedError`` (the IBR warm start and the baselines' studies are held
+  against the JAX package in ``test_torch_baselines_study.py`` and
+  ``test_torch_algames_study.py``).
 """
 import dataclasses
 import importlib.util
@@ -200,8 +202,8 @@ def test_script_writes_results_on_the_cpu(tmp_path, capsys, dtype, qp_tol):
     assert (res.statuses != 0).all()
 
 
-@pytest.mark.parametrize('argv', [['--solver', 'algames'], ['--solver', 'mcp'],
-                                  ['--scenario', 'merge']])
+@pytest.mark.parametrize('argv', [['--scenario', 'merge'], ['--scenario', 'dynamic'],
+                                  ['--scenario', 'dynamic', '--formulation', 'approximate']])
 def test_script_exits_2_for_what_is_not_ported(argv, capsys):
     with pytest.raises(SystemExit) as exc:
         _script().main(argv + ['--device', 'cpu'])
@@ -211,8 +213,5 @@ def test_script_exits_2_for_what_is_not_ported(argv, capsys):
 
 def test_unported_study_options_raise():
     sc = build_agents_scenario(M=2, N=3)
-    for kw in (dict(n_devices=4), dict(ibr_ws=True)):
-        with pytest.raises(NotImplementedError):
-            mc_study.run_mc_study(sc, num_samples=2, device='cpu', **kw)
     with pytest.raises(NotImplementedError):
-        mc_study.run_mc_study_algames(sc)
+        mc_study.run_mc_study(sc, num_samples=2, device='cpu', n_devices=4)
