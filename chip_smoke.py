@@ -15,10 +15,11 @@ Phases, each printing one line on stdout:
    shapes that reach the other branches of the kernels (an odd size, n = 150,
    right-hand-side counts on each side of the switch between the two ``cho_solve``
    kernels and off the tile width), the approximate duel's n = 150 with its 96-row
-   polish, IBR's best response's n = 50 with its 48-row polish, and on a batch with one
-   matrix that is not positive definite; and times the kernel (device time from a replayed CUDA graph, and the time
-   per call of a loop of eager calls), the plain version and the library call that
-   computes the same function.
+   polish, IBR's best response's n = 50 with its 48-row polish, the merge's n = 120
+   with its 80-row polish (float64 there), and on a batch with one matrix that is not
+   positive definite; and times the kernel (device time from a replayed CUDA graph, and
+   the time per call of a loop of eager calls), the plain version and the library call
+   that computes the same function.
 3. ``parity``: one round of ``evaluate`` + convexified QP on 16 games of the seed-0
    bench batch, the port on the card in float32 against the port on the CPU in float64.
 4. ``main_path``: the bench problem (two-agent chicane duel, N=25, theta=45 deg, batch
@@ -49,6 +50,21 @@ Phases, each printing one line on stdout:
 11. ``algames_path``: ``run_mc_study_algames`` on the same chicane in float64 (n_y = 1000
    decisions a game) on the first 8 of the ``oracle_path``'s games, compared with its
    DGSQP by ``gne_compare``.
+12. ``merge_path``: the equilibrium-match study of the merge (three kinematic unicycles,
+   N=20, n = 120 decisions) in float64, seed 0, 128 games: ``run_mc_study`` with DGSQP
+   v1's study defaults, the MCP oracle as in ``oracle_path``, then ``gne_compare``
+   (input scale 2.1/0.436 per agent, match tolerance 0.1, conv_abs only), beside the
+   JAX package's record
+   (``docs/match_dgsqp_mcp_merge_N20.json``); both kernels must launch at n = 120 and
+   at the polish's 80 rows.  It runs in a process of its own (``chip_smoke.py
+   --merge-path``, started by this one), beside ``oracle_path``, ``ibr_ws`` and
+   ``algames_path``: every path is host-bound on one CPU core with the card mostly
+   idle, so the two share the card and take a core each; its line is printed when it
+   ends.
+13. ``dp_parity``: the stage-wise game derivatives (``evaluate_dp``) against
+   ``evaluate``, both with the Hessian in float32 on the card, on the bench batch (256
+   games at the warm start) and on the merge's 128 games: relative differences of Q, q,
+   G and g, the median time of a call of each and the CUDA launches of one.
 
 The launch counts are set to 0 just before each path and read just after; each path
 that runs the kernels fails if one was not launched in it.  Then one JSON line of
@@ -110,6 +126,25 @@ ORACLE_RECORD = dict(converged_a=78, converged_b=68, both_converged=63, match=63
 ORACLE_MATCH_MIN, ORACLE_MCP_CONV_MIN, ORACLE_DGSQP_CONV_MIN = 0.95, 0.40, 0.50
 # the IBR sweep of the study's warm start: the best response's decisions and polish rows
 IBR_KERNEL_NS = (50, 48)
+# the merge's equilibrium-match study: three unicycles, N=20, n = 3 x 2 x 20 = 120
+# decisions, float64, the games of the JAX package's record (seed 0, 128 games; its
+# comparison scaled the inputs by 2.1 / 0.436 per agent, as for every suite of that
+# record); the record (the r3 solver, conv incl. rel) has every game converged and
+# matched
+MERGE_GAMES, MERGE_SEED, MERGE_N = 128, 0, 20
+MERGE_COMPARE = dict(N=MERGE_N, num_ua=[2, 2, 2], input_scale=[2.1, 0.436] * 3,
+                     match_tol=0.1, success='abs')
+MERGE_RECORD = dict(converged_a=128, converged_b=128, both_converged=128, match=128,
+                    nmse_median=4.258178923336239e-05, nmse_max=0.05744580368899047)
+MERGE_MATCH_MIN, MERGE_DGSQP_CONV_MIN, MERGE_MCP_CONV_MIN = 0.95, 0.85, 0.85
+# the decisions and the polish's rows (max(48, 120 // 2 + 14) = 74, padded to 80) the
+# kernels must launch at on the merge
+MERGE_KERNEL_NS = (120, 80)
+# evaluate_dp against evaluate, both float32 on the card on the same inputs: each
+# carries float32 rounding through the 25-step rollout (~1e-6 relative, as DERIV_RTOL
+# says), summed in another order, so the two differ by about as much
+DP_RTOL = 1e-4
+DP_GAMES = 256
 # ALGAMES on the first games of the oracle study (8: the first cut the time limit asked
 # for; a Newton iteration is host-bound, so 16 games cost about 1.6x as long); its match
 # with DGSQP is checked when at least ALGAMES_MIN_BOTH games converge in both
@@ -241,13 +276,14 @@ def phase_kernels(device='cuda', shapes=None, time_it=True):
     shapes = shapes or {
         'chol': [(256, 100, 0), (256, 64, 0), (5, 37, 0), (64, 150, 0),
                  (16, 36, 0), (16, 48, 0), (256, 150, 0), (256, 96, 0), (256, 50, 0),
-                 (256, 48, 0)],
+                 (256, 48, 0), (128, 120, 0), (128, 80, 0)],
         'cho_solve': [(256, 100, 1), (256, 100, 64), (256, 64, 1), (5, 37, 3), (256, 100, 8),
                       (256, 100, linalg.WARP_PATH_MAX_K), (256, 100, linalg.WARP_PATH_MAX_K + 1),
                       (256, 100, 33), (5, 37, 33), (64, 150, 1), (64, 150, 64),
                       (16, 36, 1), (16, 36, 36), (16, 36, 48), (16, 48, 1),
                       (256, 150, 1), (256, 150, 96), (256, 96, 1), (256, 50, 1),
-                      (256, 50, 48), (256, 48, 1)]}
+                      (256, 50, 48), (256, 48, 1), (128, 120, 1), (128, 120, 80),
+                      (128, 80, 1)]}
     rows = []
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split('.')[-1]
@@ -301,7 +337,8 @@ def _eval_and_step(sol, u0, l0, x0, up):
     """One evaluate + convexified QP step: v1's ``_qp(Q, q, G, g)`` on the game Hessian,
     or v2's symmetrised Hessian and ``_qp`` with the initial regularisation."""
     import torch
-    if hasattr(sol, '_eval_full'):
+    from dgsqp_torch.solvers.dgsqp_v2 import DGSQPV2
+    if isinstance(sol, DGSQPV2):
         out = sol._eval_full(u0, l0, x0, up, None)
         reg = torch.full((u0.shape[0],), sol.params.reg, dtype=sol.dtype, device=sol.device)
         return out, sol._qp(*out, reg)[0]
@@ -649,6 +686,169 @@ def phase_algames_path(sc, dg):
         raise AssertionError('algames_path: ' + '; '.join(problems))
 
 
+def phase_merge_path(device='cuda'):
+    """The merge's DGSQP-vs-MCP equilibrium-match study at full width, float64 on the
+    card."""
+    import numpy as np
+    import torch
+    from dgsqp_torch.harness.analysis import gne_compare
+    from dgsqp_torch.harness.mc_study import analyze_results, run_mc_study
+    from dgsqp_torch.harness.scenarios import build_merge_scenario
+    from dgsqp_torch.solvers.mcp import PATHMCP
+    from dgsqp_torch.solvers.solver_types import PATHMCPParams
+    sc = build_merge_scenario(N=MERGE_N)
+    reset_launches()
+    t0 = time.time()
+    dg = run_mc_study(sc, num_samples=MERGE_GAMES, seed=MERGE_SEED, dtype=torch.float64,
+                      device=device)
+    dg_s = time.time() - t0
+    mcp = PATHMCP(sc.joint_model, sc.costs, sc.agent_constraints, sc.shared_constraints,
+                  sc.bounds, PATHMCPParams(N=sc.N, dt=sc.dt, tol=1e-3, method='hybrid',
+                                           max_iters=200, max_restarts=4),
+                  print_method=None, dtype=torch.float64, device=device)
+    t0 = time.time()
+    mc = run_mc_study(sc, num_samples=MERGE_GAMES, seed=MERGE_SEED, solver=mcp)
+    mc_s = time.time() - t0
+    launches, launches_by_n = read_launches(), read_launches_by_n()
+    rep = gne_compare(dg, mc, **MERGE_COMPARE)
+    conv_dg = float(rep['converged_a'] / MERGE_GAMES)
+    conv_mc = float(rep['converged_b'] / MERGE_GAMES)
+    line = {'phase': 'merge_path', 'scenario': sc.name, 'horizon': sc.N,
+            'n_dec': mcp.n_dec, 'n_c': mcp.n_c, 'dtype': 'float64', 'games': MERGE_GAMES,
+            'dgsqp': analyze_results(dg), 'mcp': analyze_results(mc),
+            'dgsqp_seconds': dg_s, 'mcp_seconds': mc_s,
+            'dgsqp_solve_s': dg.wall_time_s, 'mcp_solve_s': mc.wall_time_s,
+            'mcp_iters_p50': float(np.median(mc.iters)), 'mcp_iters_max': int(mc.iters.max()),
+            'dgsqp_conv_abs': conv_dg, 'mcp_conv_abs': conv_mc,
+            'both': rep['both_converged'], 'match': rep['match'],
+            'match_rate_of_both': rep['match_rate_of_both'],
+            'nmse_median': rep.get('nmse_median'), 'nmse_max': rep.get('nmse_max'),
+            'gne_compare': rep, 'record': MERGE_RECORD,
+            'record_counts': 'the r3 solver, conv incl. rel',
+            'limits': {'match_rate_of_both': MERGE_MATCH_MIN,
+                       'dgsqp_conv_abs': MERGE_DGSQP_CONV_MIN,
+                       'mcp_conv_abs': MERGE_MCP_CONV_MIN},
+            'launches': launches, 'launches_by_n': launches_by_n,
+            'status_string_dgsqp': ''.join(str(int(s)) for s in dg.statuses),
+            'status_string_mcp': ''.join(str(int(s)) for s in mc.statuses)}
+    emit(line)
+    problems = []
+    if not np.array_equal(dg.x0, mc.x0):
+        problems.append('the two studies sampled different games')
+    if mcp.n_dec != 3 * 2 * MERGE_N:
+        problems.append(f'the study ran at n = {mcp.n_dec}')
+    missing = [(name, n) for name in launches_by_n for n in MERGE_KERNEL_NS
+               if not launches_by_n[name].get(n)]
+    if missing:
+        problems.append(f'kernels not launched at these sizes: {missing}')
+    if (mc.statuses == 0).any() or (dg.statuses == 0).any():
+        problems.append('games still running')
+    if not np.isfinite(mc.u_sol).all() or not np.isfinite(dg.u_sol).all():
+        problems.append('non-finite solutions')
+    if rep['match_rate_of_both'] < MERGE_MATCH_MIN:
+        problems.append(f"match rate {rep['match_rate_of_both']:.3f} < {MERGE_MATCH_MIN}")
+    if conv_mc < MERGE_MCP_CONV_MIN or conv_dg < MERGE_DGSQP_CONV_MIN:
+        problems.append(f'conv_abs MCP {conv_mc:.3f} / DGSQP {conv_dg:.3f} below '
+                        f'{MERGE_MCP_CONV_MIN} / {MERGE_DGSQP_CONV_MIN}')
+    if problems:
+        raise AssertionError('merge_path: ' + '; '.join(problems))
+    return launches
+
+
+MERGE_CHILD = '--merge-path'
+
+
+def start_merge_path():
+    """Start ``merge_path`` in a process of its own, beside the phases that follow: the
+    paths are host-bound (one CPU core each, the card idle most of the time), so the
+    merge's study runs on another core.  The child counts its own launches."""
+    here = Path(__file__).resolve()
+    return subprocess.Popen([sys.executable, str(here), MERGE_CHILD], cwd=here.parent,
+                            stdout=subprocess.PIPE, text=True)
+
+
+def finish_merge_path(proc, timeout=900):
+    """Wait for the ``merge_path`` process, emit its line here, fail if it failed."""
+    out, _ = proc.communicate(timeout=timeout)
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith('{')]
+    line = next((ln for ln in lines if ln.get('phase') == 'merge_path'), None)
+    if line is not None:
+        emit(line)
+    if proc.returncode != 0 or line is None:
+        raise AssertionError(f'merge_path failed in its process (exit code {proc.returncode})')
+    return line['launches']
+
+
+def ms_and_launches(fn, reps=3):
+    """Median wall time (ms) of ``fn`` with a synchronise after each call, and the
+    CUDA kernels (and copies) one call issues, counted by ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    launches = sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return float(np.median(times)) * 1e3, launches
+
+
+def merge_dp_batch(games, device='cuda'):
+    """The merge study's games (seed 0, warm start all zero, least-squares duals) and
+    its game problem, in float32 on the card."""
+    import torch
+    from dgsqp_torch.harness.samplers import sample_merge_initial_conditions
+    from dgsqp_torch.harness.scenarios import build_merge_scenario
+    from dgsqp_torch.solvers.game_problem import GameProblem
+    dtype = torch.float32
+    sc = build_merge_scenario(N=MERGE_N)
+    problem = GameProblem(sc.joint_model, sc.costs, sc.agent_constraints,
+                          sc.shared_constraints, sc.bounds, sc.N, dtype=dtype, device=device)
+    x0, u_ws, _, _ = sample_merge_initial_conditions(sc, games, seed=MERGE_SEED, dtype=dtype,
+                                                     device=device)
+    u0 = problem.stage_to_u(torch.as_tensor(u_ws, dtype=dtype, device=device))
+    x0 = torch.as_tensor(x0, dtype=dtype, device=device)
+    up = torch.zeros(games, sc.joint_model.n_u, dtype=dtype, device=device)
+    return problem, (u0, problem.dual_warm_start(u0, x0, up), x0, up)
+
+
+def phase_dp_parity(cases):
+    """``evaluate_dp`` against ``evaluate`` (both with the Hessian, float32, on the card,
+    the same inputs) on each batch of ``cases``: relative differences of Q, q, G and g,
+    the median time of a call and the CUDA launches of one."""
+    rows, bad = {}, []
+    for name, (problem, (u0, l0, x0, up)) in cases.items():
+        ad = problem.evaluate(u0, l0, x0, up)[:4]
+        dp = problem.evaluate_dp(u0, l0, x0, up)[:4]
+        diffs = {k: rel_err(a.double(), b.double())
+                 for k, a, b in zip('Q q G g'.split(), dp, ad)}
+        finite = all(bool(t.isfinite().all()) for t in dp)
+        ms_ad, n_ad = ms_and_launches(lambda: problem.evaluate(u0, l0, x0, up))
+        ms_dp, n_dp = ms_and_launches(lambda: problem.evaluate_dp(u0, l0, x0, up))
+        rows[name] = {'games': int(u0.shape[0]), 'n_dec': problem.n_dec,
+                      'n_c': problem.n_c_total, 'dtype': str(u0.dtype), 'rel_diff': diffs,
+                      'evaluate_ms': ms_ad, 'evaluate_dp_ms': ms_dp,
+                      'evaluate_launches': n_ad, 'evaluate_dp_launches': n_dp}
+        bad += [f'{name} {k} {v:.2e}' for k, v in diffs.items() if not v <= DP_RTOL]
+        if not finite:
+            bad.append(f'{name}: non-finite evaluate_dp')
+    emit({'phase': 'dp_parity', 'batches': rows, 'tol': DP_RTOL,
+          'why': 'both float32 on the card: each carries f32 rounding through the 25-step '
+                 'rollout (~1e-6 relative), summed in another order'})
+    if bad:
+        raise AssertionError(f'dp_parity outside tolerance: {bad}')
+    return rows
+
+
 def kernel_summary(rows, launches_by_path):
     """The per-kernel line: numbers at the main shape (float32), all shapes beside."""
     meta = {
@@ -718,9 +918,18 @@ def main():
         metric='approx_duel_solves_per_s', n_dec=APPROX_N_DEC,
         conv_abs_limit=APPROX_CONV_ABS_LIMIT, kernel_ns=APPROX_KERNEL_NS)['launches']
 
-    sc_or, dg, launches['oracle_path'] = phase_oracle_path()
-    launches['ibr_ws'] = phase_ibr_ws(sc, batch)
-    phase_algames_path(sc_or, dg)
+    merge = start_merge_path()
+    try:
+        sc_or, dg, launches['oracle_path'] = phase_oracle_path()
+        launches['ibr_ws'] = phase_ibr_ws(sc, batch)
+        phase_algames_path(sc_or, dg)
+        launches['merge_path'] = finish_merge_path(merge)
+    finally:
+        if merge.poll() is None:
+            merge.kill()
+            merge.wait()
+    phase_dp_parity({'bench': (sol.problem, tuple(a[:DP_GAMES] for a in batch)),
+                     'merge': merge_dp_batch(MERGE_GAMES)})
 
     emit(kernel_summary(rows, launches))
     emit({'phase': 'total', 'seconds': time.time() - t_start})
@@ -728,5 +937,21 @@ def main():
                                  'count': torch.cuda.device_count()}})
 
 
+def merge_path_process():
+    """The body of the ``merge_path`` process: its line goes to stdout (the parent
+    emits it into the log) and to a log of its own."""
+    import torch
+    global LOG
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    LOG = LOG.with_name('chip_smoke_merge.jsonl')
+    LOG.parent.mkdir(parents=True, exist_ok=True)
+    LOG.write_text('')
+    phase_merge_path()
+
+
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:] == [MERGE_CHILD]:
+        merge_path_process()
+    else:
+        main()

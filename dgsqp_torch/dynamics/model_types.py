@@ -1,5 +1,5 @@
 """Dynamics model configuration dataclasses, a jax-free copy of the part of
-``dgsqp_tpu/dynamics/model_types.py`` that the kinematic-bicycle models read.
+``dgsqp_tpu/dynamics/model_types.py`` that the kinematic bicycles and unicycles read.
 
 Codegen-related flags (``code_gen``, ``jit``, ``opt_flag``, ``install_dir``) are kept for
 API compatibility and are inert.
@@ -55,6 +55,15 @@ class KinematicBicycleConfig(DynamicsConfig):
     drag_coefficient: float = 0.0
     damping_coefficient: float = 0.0
     slip_coefficient: float = 0.0
+    rolling_resistance: float = 0.0
+    rolling_resistance_exponent: float = 0.5
+
+
+@dataclass
+class UnicycleConfig(DynamicsConfig):
+    mass: float = 2.366
+    damping_coefficient: float = 0.0
+    drag_coefficient: float = 0.0
     rolling_resistance: float = 0.0
     rolling_resistance_exponent: float = 0.5
 

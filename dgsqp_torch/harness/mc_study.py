@@ -4,8 +4,10 @@ One call samples all initial conditions, warm-starts them as one batch and solve
 whole batch in lockstep on one device.  ``analyze_results`` gives the study's statistics
 (success rate, iteration counts over converged samples, status counts).
 
-Not ported: sharding the batch over several GPUs (``n_devices`` other than ``None``/1)
-raises ``NotImplementedError``.
+Every scenario of the JAX package's studies is sampled here but the dynamic-bicycle
+duels (their samplers raise ``NotImplementedError``; ROADMAP queue 1, item 3,
+the dynamic-bicycle family), and sharding the batch over several GPUs (``n_devices`` other
+than ``None``/1) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 
 from dgsqp_torch.harness.samplers import (sample_agents_initial_conditions,
-                                          sample_duel_initial_conditions)
+                                          sample_duel_initial_conditions,
+                                          sample_merge_initial_conditions)
 from dgsqp_torch.harness.warm_start import seed_virtual_rate_prev
 from dgsqp_torch.solvers.dgsqp import CONV_ABS, CONV_REL, DGSQP, STATUS_MSG
 from dgsqp_torch.solvers.solver_types import DGSQPParams
@@ -82,10 +85,12 @@ def run_provenance(solver, seed=None, extra: Optional[dict] = None) -> dict:
 
 
 def _sample(scenario, num_samples, seed, dtype, device):
-    for prefix in ('merge', 'dynamic'):
-        if scenario.name.startswith(prefix):
-            raise NotImplementedError(f'the {prefix} sampler is not ported '
-                                      '(ROADMAP items 10 and 14)')
+    if scenario.name.startswith('dynamic'):
+        raise NotImplementedError('the dynamic samplers are not ported (ROADMAP queue 1, '
+                                  'item 3: the dynamic-bicycle family)')
+    if scenario.name.startswith('merge'):
+        return sample_merge_initial_conditions(scenario, num_samples, seed=seed,
+                                               dtype=dtype, device=device)
     if scenario.name.startswith('agents'):
         return sample_agents_initial_conditions(scenario, num_samples, seed=seed,
                                                 dtype=dtype, device=device)
@@ -184,7 +189,7 @@ def run_mc_study(scenario, solver_params=None, num_samples: int = 200, seed: int
     """
     if n_devices not in (None, 1):
         raise NotImplementedError('sharding a study over several GPUs is not ported '
-                                  '(ROADMAP item 10)')
+                                  '(ROADMAP queue 1, item 8: multi-GPU study sharding)')
     if solver is None:
         if solver_params is None:
             solver_params = DGSQPParams(N=scenario.N, dt=scenario.dt, reg=1e-3,

@@ -1,6 +1,6 @@
 """Monte-Carlo initial-condition samplers with rejection, ported from
-``sample_duel_initial_conditions`` and ``sample_agents_initial_conditions`` in
-``dgsqp_tpu/harness/samplers.py``.
+``sample_duel_initial_conditions``, ``sample_agents_initial_conditions`` and
+``sample_merge_initial_conditions`` in ``dgsqp_tpu/harness/samplers.py``.
 
 Candidates are drawn with numpy's ``default_rng(seed)`` exactly as in the JAX package
 (so the same seed draws the same candidates), placed on the track, warm-started as one
@@ -129,3 +129,70 @@ def sample_agents_initial_conditions(scenario, num_samples: int, seed: int = 0,
         raise RuntimeError(f'Agents sampler failed: {need} missing after {max_rounds} rounds')
     return (np.concatenate(xs), np.concatenate(us),
             np.concatenate(vrs), np.concatenate(lrs))
+
+
+def sample_merge_initial_conditions(scenario, num_samples: int, seed: int = 1,
+                                    max_rounds: int = 80, dtype=torch.float32,
+                                    device='cuda'):
+    """Sampler of the merge study: jittered nominal states for the two straight-lane cars
+    and the ramp car, zero-input warm-start rollouts (one batch on the device), pairwise
+    collision rejection over the whole rollout.
+
+    Returns numpy arrays x0 (B, 12), u_ws (B, N, 6) all zero, and None, None.
+    """
+    geo = scenario.merge_geometry
+    th = geo['th']
+    x5, x7 = geo['x5'], geo['x7']
+    N = scenario.N
+    joint = scenario.joint_model
+    rng = np.random.default_rng(seed)
+
+    def rollout_zero(x0):
+        q = torch.as_tensor(x0, dtype=dtype, device=device)
+        u = q.new_zeros(q.shape[0], joint.n_u)
+        qs = [q]
+        for _ in range(N):
+            qs.append(joint.fd(qs[-1], u))
+        return torch.stack(qs, dim=1).cpu().numpy().astype(np.float64)
+
+    xs = []
+    need = num_samples
+    for _ in range(max_rounds):
+        B = max(2 * need, 8)
+
+        def jitter(x_nom, y_nom, v_nom=0.3, p_nom=0.0):
+            x = x_nom + 0.5 * rng.random(B) - 0.25
+            y = y_nom + 0.1 * rng.random(B) - 0.05
+            v = v_nom * (1 + 0.06 * rng.random(B) - 0.03)
+            p = p_nom + (5 * rng.random(B) - 2.5) * np.pi / 180
+            return np.stack([x, y, v, p], axis=-1)
+
+        c1 = jitter(0.0, 0.15)
+        c2 = jitter(0.5, 0.15)
+        # ramp car: jitter along the ramp's direction
+        x_nom = 0.25
+        y_nom = -(float(x7[0] + x5[0]) / 2 - 0.25) * np.tan(th)
+        s_r = 0.5 * rng.random(B) - 0.25
+        ey_r = 0.1 * rng.random(B) - 0.05
+        c3 = np.stack([x_nom + s_r * np.cos(th) - ey_r * np.sin(th),
+                       y_nom + s_r * np.sin(th) + ey_r * np.cos(th),
+                       0.3 * (1 + 0.06 * rng.random(B) - 0.03),
+                       np.pi / 12 + (5 * rng.random(B) - 2.5) * np.pi / 180], axis=-1)
+        x0 = np.concatenate([c1, c2, c3], axis=-1)
+
+        q_traj = rollout_zero(x0)    # (B, N+1, 12)
+        ok = np.ones(B, dtype=bool)
+        for i in range(3):
+            for j in range(i + 1, 3):
+                d = np.linalg.norm(q_traj[:, :, 4 * i:4 * i + 2] -
+                                   q_traj[:, :, 4 * j:4 * j + 2], axis=-1)
+                ok &= (d >= scenario.obs_d).all(axis=1)
+        idx = np.where(ok)[0][:need]
+        if idx.size:
+            xs.append(x0[idx])
+            need -= idx.size
+        if need == 0:
+            break
+    if need > 0:
+        raise RuntimeError(f'Merge sampler failed: {need} missing after {max_rounds} rounds')
+    return np.concatenate(xs), np.zeros((num_samples, N, joint.n_u)), None, None

@@ -1,7 +1,7 @@
 """Benchmark scenario factories, ported from ``dgsqp_tpu/harness/scenarios.py``
 (``Scenario``, ``build_racing_duel``, ``build_chicane_scenario``,
-``build_curve_scenario``, ``build_agents_scenario``, ``build_approximate_duel``,
-``build_exact_duel``, ``joint_constraints_for_algames``).
+``build_curve_scenario``, ``build_agents_scenario``, ``build_merge_scenario``,
+``build_approximate_duel``, ``build_exact_duel``, ``joint_constraints_for_algames``).
 
 Costs and constraints are callables on tensors with any leading batch shape (the last
 dimension holds the state or input), so the game evaluates a group of stages in one call.
@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from dgsqp_torch.dynamics import (KinematicBicycleCombined, KinematicBicycleConfig,
-                                  MultiAgentDynamicsModel, MultiAgentModelConfig)
+                                  KinematicUnicycle, MultiAgentDynamicsModel,
+                                  MultiAgentModelConfig, UnicycleConfig)
 from dgsqp_torch.tracks import ChicaneTrack, CurveTrack
 from dgsqp_torch.types import (BodyAngularVelocity, BodyLinearVelocity, OrientationEuler,
                                ParametricPose, Position, VehicleActuation, VehicleState)
@@ -262,6 +263,115 @@ def build_agents_scenario(M: int = 3, N: int = 25, theta_deg: float = 90.0,
                     input_lb=np.array([-u_a_max, -u_steer_max]),
                     input_rate_ub=np.array([u_a_rate, u_steer_rate]),
                     input_rate_lb=np.array([-u_a_rate, -u_steer_rate]))
+
+
+def build_merge_scenario(N: int = 20, dt: float = 0.1) -> Scenario:
+    """Three-unicycle highway merge in a hand-built polygonal environment.
+
+    Cars 1-2 drive the straight lane, car 3 enters on a ramp; per-agent lane half-plane
+    constraints (piecewise normals on the ramp), pairwise collision avoidance shared
+    constraints, quadratic goal-tracking costs.  ``merge_geometry`` holds the lane
+    geometry and goals the merge sampler reads.
+    """
+    ll, lw, mw, mp = 5.0, 0.3, 0.3, 1.5
+    th = np.pi / 12
+    r = 0.1
+
+    ns = np.array([0.0, 1.0])
+    nm = np.array([-np.sin(th), np.cos(th)])
+    x1 = np.array([0.0, lw])
+    x3 = np.array([0.0, 0.0])
+    x5 = np.array([mp, 0.0])
+    x6 = np.array([mp + lw / np.tan(th), lw])
+    x7 = np.array([mp + mw / np.sin(th), 0.0])
+
+    goals = [np.array([4.0, 0.15, 0.3, 0.0]),
+             np.array([4.5, 0.15, 0.3, 0.0]),
+             np.array([4.25, 0.15, 0.3, 0.0])]
+
+    models = [KinematicUnicycle(0.0, UnicycleConfig(dt=dt, discretization_method='rk3', M=1))
+              for _ in range(3)]
+    joint = MultiAgentDynamicsModel(0.0, models, MultiAgentModelConfig(dt=dt))
+
+    n_qa = 4
+    W = (1.0, 10.0, 1.0, 1.0)   # the diagonal of the goal-tracking weight
+
+    def make_cost(a):
+        goal = [float(v) for v in goals[a]]
+
+        def tracking(x):
+            return sum(W[i] * (x[..., n_qa * a + i] - goal[i]) ** 2 for i in range(n_qa))
+
+        def stage(x, u, um):
+            return 0.5 * 0.1 * (u[..., 0] ** 2 + u[..., 1] ** 2) + 0.5 * tracking(x)
+
+        def term(x):
+            return 10.0 * 0.5 * tracking(x)
+        return (stage, term)
+
+    costs = [make_cost(a) for a in range(3)]
+
+    def straight_lane(px, py):
+        return torch.stack([py - (lw - r),     # below left boundary (shifted in by r)
+                            r - py], dim=-1)   # above right boundary
+
+    (m0, m1), (s0, s1) = nm.tolist(), ns.tolist()
+    (l0, l1), (r0, r1) = x6.tolist(), x7.tolist()
+
+    def ramp_lane(px, py):
+        # the normal of each boundary switches from the ramp's to the lane's at its
+        # corner; at the corner itself the lane's, as the JAX package's jnp.where picks
+        dl, dr = (px - l0, py - l1), (px - r0, py - r1)
+        c_l = torch.where(px < l0, m0 * dl[0] + m1 * dl[1], s0 * dl[0] + s1 * dl[1]) + r
+        c_r = torch.where(px < r0, -m0 * dr[0] - m1 * dr[1], -s0 * dr[0] - s1 * dr[1]) + r
+        return torch.stack([c_l, c_r], dim=-1)
+
+    def make_lane(a):
+        lane = ramp_lane if a == 2 else straight_lane
+
+        def stage(x, u, um):
+            return lane(x[..., n_qa * a], x[..., n_qa * a + 1])
+
+        def term(x):
+            return lane(x[..., n_qa * a], x[..., n_qa * a + 1])
+        return [stage] * N + [term]
+
+    agent_constraints = [make_lane(a) for a in range(3)]
+
+    agent_r = 0.1
+    obs_d = 2 * agent_r
+
+    def obs_avoid(x):
+        rows = []
+        for i in range(3):
+            for j in range(i + 1, 3):
+                dxy = x[..., n_qa * i:n_qa * i + 2] - x[..., n_qa * j:n_qa * j + 2]
+                rows.append(obs_d ** 2 - torch.sum(dxy * dxy, dim=-1))
+        return torch.stack(rows, dim=-1)
+
+    obs_avoid_stage = lambda x, u, um: obs_avoid(x)
+    shared_constraints = [None] + [obs_avoid_stage] * (N - 1) + [lambda x: obs_avoid(x)]
+
+    def bound(sign):
+        return VehicleState(
+            x=Position(x=sign * np.inf, y=sign * np.inf),
+            p=ParametricPose(s=sign * np.inf, x_tran=sign * np.inf, e_psi=sign * np.inf),
+            e=OrientationEuler(psi=sign * np.inf),
+            v=BodyLinearVelocity(v_long=sign * 2.0, v_tran=sign * np.inf),
+            w=BodyAngularVelocity(w_psi=sign * np.inf),
+            u=VehicleActuation(u_a=sign * 2.0, u_steer=sign * 4.5))
+
+    bounds = {'ub': [bound(1) for _ in range(3)], 'lb': [bound(-1) for _ in range(3)]}
+
+    sc = Scenario(name=f'merge_N{N}', track=None, joint_model=joint, costs=costs,
+                  agent_constraints=agent_constraints, shared_constraints=shared_constraints,
+                  bounds=bounds, N=N, dt=dt, obs_d=obs_d, half_width=lw / 2,
+                  input_ub=np.array([2.0, 4.5]), input_lb=np.array([-2.0, -4.5]),
+                  input_rate_ub=np.array([np.inf, np.inf]),
+                  input_rate_lb=np.array([-np.inf, -np.inf]))
+    sc.merge_geometry = dict(ll=ll, lw=lw, mw=mw, mp=mp, th=th, r=r,
+                             x1=x1, x3=x3, x5=x5, x6=x6, x7=x7, goals=goals)
+    return sc
 
 
 def _default_duel_track(half_width: float):

@@ -265,8 +265,6 @@ class DGSQP(_HostInterface):
         if not self._use_flat():
             raise NotImplementedError('only the flat round machine (watchdog on, exact '
                                       'Hessians) is ported')
-        if params.hessian_mode != 'ad':
-            raise NotImplementedError(f"hessian_mode={params.hessian_mode!r} is not ported")
         self.device = torch.device(device)
         if self.device.type == 'cuda':
             # full-precision float32 products: the merit and KKT machinery needs them
@@ -304,6 +302,13 @@ class DGSQP(_HostInterface):
         return p.nonmono_ls and p.hessian_approximation == 'none'
 
     # ------------------------------------------------------------------ pieces
+    def _eval_full(self, u, l, x0, up, P=None):
+        """(Q, q, G, g, x) by whole-trajectory AD (``hessian_mode='ad'``) or from
+        stage-wise derivatives (``'dp'``)."""
+        evaluate = self.problem.evaluate_dp if self.params.hessian_mode == 'dp' \
+            else self.problem.evaluate
+        return evaluate(u, l, x0, up, P, hessian=True)
+
     def _qp(self, Q, q, G, g, warm=None):
         p = self.params
         Qh = regularized_convexification(Q, p.reg, method=p.conv_method,
@@ -372,7 +377,7 @@ class DGSQP(_HostInterface):
         l_eval = _sel(is_step, c.l, c.l_cur)
 
         # ---- the round's single evaluate + QP
-        Q_t, q_t, G_t, g_t, _ = self.problem.evaluate(u_eval, l_eval, x0, up, hessian=True)
+        Q_t, q_t, G_t, g_t, _ = self._eval_full(u_eval, l_eval, x0, up)
         d_t = q_t + _mtv(G_t, l_eval)
         if self.n_c > 0:
             p_feas_t = torch.clamp(torch.amax(g_t, dim=-1), min=0.0)
@@ -578,7 +583,8 @@ class DGSQP(_HostInterface):
 
     def _make_body(self, x0, up, P=None):
         raise NotImplementedError('solve_batch_traced records the iterations of the '
-                                  'nested machine, which is not ported (ROADMAP item 7)')
+                                  'nested machine, which is not ported (ROADMAP queue 1, '
+                                  'item 6)')
 
     def solve(self, states: List[VehicleState], parameters=None):
         """One game from the stored warm start: a batch of one on the flat machine,

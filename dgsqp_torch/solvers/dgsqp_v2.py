@@ -111,8 +111,6 @@ class DGSQPV2(_HostInterface):
                  dtype=torch.float32, device='cuda'):
         params = params or DGSQPV2Params()
         self.params = params
-        if params.hessian_mode != 'ad':
-            raise NotImplementedError(f"hessian_mode={params.hessian_mode!r} is not ported")
         self.device = torch.device(device)
         if self.device.type == 'cuda':
             # full-precision float32 products: the merit and KKT machinery needs them
@@ -152,7 +150,9 @@ class DGSQPV2(_HostInterface):
 
     # ------------------------------------------------------------------ pieces
     def _eval_full(self, u, l, x0, up, P):
-        Q, q, G, g, _ = self.problem.evaluate(u, l, x0, up, P, hessian=True)
+        evaluate = self.problem.evaluate_dp if self.params.hessian_mode == 'dp' \
+            else self.problem.evaluate
+        Q, q, G, g, _ = evaluate(u, l, x0, up, P, hessian=True)
         return 0.5 * (Q + Q.transpose(-1, -2)), q, G, g   # v2 symmetrizes
 
     def _eval_lite(self, u, l, x0, up, P):

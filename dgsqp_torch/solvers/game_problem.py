@@ -11,7 +11,12 @@ and the condensed derivatives are
   * ``Q``  = D_u [D_{u^a} (J^a + l'C)]_a, the (non-symmetric) game Hessian,
 
 computed with ``torch.func`` (forward-mode for ``q, G``; forward-over-reverse for
-``Q``).  Costs and constraints are per-agent lists of per-stage callables (length N+1,
+``Q``).  ``evaluate_dp`` builds the same four from per-stage derivatives instead: the
+stage functions' Jacobians and Hessians at every stage at once, the sensitivity stack
+X_k = dx_k/du by the forward recursion of the dynamics' Jacobians, an adjoint pass for
+the dynamics' curvature, and products against that stack.
+
+Costs and constraints are per-agent lists of per-stage callables (length N+1,
 entry N = terminal, entries may be ``None``) written on tensors with any leading batch
 shape, so a group of stages that share a callable is evaluated in one call on the
 stacked stage tensors.  Rows are assembled in the reference's canonical order by one
@@ -153,6 +158,7 @@ class GameProblem:
 
         self._count_constraints()
         self._build_plan()
+        self._dp_sel = None
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -484,6 +490,233 @@ class GameProblem:
                        for a in range(M)], dim=1)
         return Q, q, G, g, x
 
+    # --------------------------------------- DP (stage-wise) condensed evaluation
+    def _dp_plan(self):
+        """Constant structures of :meth:`evaluate_dp`, built once on the host in float64
+        and moved to the problem's device and dtype: the input selectors S_k = du_k/du
+        and Sm_k = du_{k-1}/du (N, n_u, n_dec), the constant input-box rows G0 of ``G``
+        (linear in u; kept per agent as the pieces G's assembly takes), the rows of
+        ``l`` that weight each constraint group, the rows of the state-box constraints,
+        and where each agent's lifted stage coordinates sit in the joint ones."""
+        if self._dp_sel is not None:
+            return self._dp_sel
+        N, M, nu, nd = self.N, self.M, self.n_u, self.n_dec
+        S = np.zeros((N, nu, nd))
+        for a in range(M):
+            da = self.num_ua_d[a]
+            for k in range(N):
+                for d in range(da):
+                    S[k, self.u_offsets[a] + d, self.ua_el_offsets[a] + k * da + d] = 1.0
+        Sm = np.zeros_like(S)
+        Sm[1:] = S[:-1]
+
+        def rows(a, col, idx, stages):
+            return np.stack([self._block_offsets(a, k)[col] + np.arange(len(idx))
+                             for k in stages]).reshape(-1)
+
+        late = list(range(1, N)) + [N]
+        G0 = np.zeros((self.n_c_total, nd))
+        input_box, state_box = [], []
+        for a in range(M):
+            da = self.num_ua_d[a]
+            Sa = S[:, self.u_offsets[a]:self.u_offsets[a] + da, :]
+            pieces = []
+            for col, idx, sign in ((1, self.input_ub_idxs[a], 1.0),
+                                   (2, self.input_lb_idxs[a], -1.0)):
+                if len(idx):
+                    r = rows(a, col, idx, range(N))
+                    G0[r] = sign * Sa[:, idx, :].reshape(-1, nd)
+                    pieces.append(r)
+            input_box.append(pieces)
+            state_box.append([self._t(rows(a, col, idx, late), torch.long)
+                              if len(idx) else None
+                              for col, idx in ((3, self.state_ub_idxs[a]),
+                                               (4, self.state_lb_idxs[a]))])
+        shared_w = [self._t(np.stack([self._stage_off[k] + np.arange(self._m_shared[k])
+                                      for k in ks.tolist()]), torch.long)
+                    for _, ks in self._shared_groups]
+        agent_w = [[self._t(np.stack([self._block_offsets(a, k)[0]
+                                      + np.arange(self._m_agent[a][k])
+                                      for k in ks.tolist()]), torch.long)
+                    for _, ks in self._agent_groups[a]] for a in range(M)]
+        term_w = (self._t(self._stage_off[N] + np.arange(self._m_shared[N]), torch.long),
+                  [self._t(self._block_offsets(a, N)[0] + np.arange(self._m_agent[a][N]),
+                           torch.long) for a in range(M)])
+        # where each agent's lifted coordinates (x, u^a, u^a_prev) sit in the joint ones
+        nq = self.n_q
+        lifted_idx = [self._t(np.concatenate([np.arange(nq), nq + np.arange(lo, hi),
+                                              nq + nu + np.arange(lo, hi)]), torch.long)
+                      for lo, hi in zip(self.u_offsets[:-1], self.u_offsets[1:])]
+        t = lambda arr: self._t(arr, self.dtype)
+        self._dp_sel = dict(S=t(S), Sm=t(Sm), lifted_idx=lifted_idx,
+                            input_box=[[t(G0[r]) for r in pieces] for pieces in input_box],
+                            state_box=state_box, shared_w=shared_w, agent_w=agent_w,
+                            term_w=term_w)
+        return self._dp_sel
+
+    def evaluate_dp(self, u, l, x0, u_prev, P=None, hessian: bool = True):
+        """Stage-structured (DP) evaluation: the same ``(Q, q, G, g, x)`` as
+        :meth:`evaluate` (``(q, G, g, x)`` without the Hessian), assembled from
+        per-stage derivatives and the sensitivity stack X_k = dx_k/du instead of
+        whole-trajectory AD sweeps.
+
+        Every stage group (the stages that share a cost or constraint callable) costs one
+        forward-over-reverse call on its (B, K) batch of lifted stage points (x_k, u_k,
+        u_{k-1}), with explicit tangents as in ``_jac_fwd``, whatever B and K are: the
+        Jacobian of its rows and the Hessian of their dual-weighted sum.  The dynamics'
+        Jacobians and second derivatives at every stage come from one such call on fd.
+        The horizon couples through the N-step recursions for X and the adjoints, and
+        products against the stack Z_k = [X_k; S_k; Sm_k].
+        """
+        N, M = self.N, self.M
+        nq, nu, nd = self.n_q, self.n_u, self.n_dec
+        nz = nq + nu
+        B = u.shape[0]
+        plan = self._dp_plan()
+        S, Sm = plan['S'], plan['Sm']
+        jd = self.joint_dynamics
+        u_mat = self.u_to_stage(u)
+        um_mat = torch.cat([u_prev[:, None], u_mat[:, :-1]], dim=1)
+        ua = [self.agent_u_block(u, a).reshape(B, N, self.num_ua_d[a]) for a in range(M)]
+        uma = [torch.cat([u_prev[:, None, self.u_offsets[a]:self.u_offsets[a + 1]],
+                          ua[a][:, :-1]], dim=1) for a in range(M)]
+        x = self.rollout(u, x0)
+        g = self._constraints_along(x, u, u_prev, P)
+
+        # the dynamics' Jacobians [A_k | B_k] (B, N, nq, nq+nu) and, with the Hessian,
+        # their second derivatives T (B, N, nq, nq+nu, nq+nu), in one call
+        zd = torch.cat([x[:, :-1], u_mat], dim=-1)
+        fd = lambda z: jd.fd(z[..., :nq], z[..., nq:])
+        if hessian:
+            Jd, T = _stage_jac_fwd(lambda z: _stage_jac_rev(fd, z), zd)
+        else:
+            Jd = _stage_jac_fwd(fd, zd)[1]
+        A = Jd[..., :nq]
+
+        # sensitivity stack X (B, N+1, nq, nd): X_{k+1} = A_k X_k + B_k S_k
+        BS = torch.einsum('bkqv,kvd->bkqd', Jd[..., nq:], S)
+        Xs = [x.new_zeros(B, nq, nd)]
+        for k in range(N):
+            Xs.append(torch.baddbmm(BS[:, k], A[:, k], Xs[-1]))
+        X = torch.stack(Xs, dim=1)
+        # lifted stacks Z = [X_k; S_k; Sm_k] (B, N, nq + 2 n_u, nd), joint and per agent
+        # (the agent's own u columns)
+        Z = torch.cat([X[:, :-1], S.expand(B, -1, -1, -1), Sm.expand(B, -1, -1, -1)], dim=2)
+        Za = [torch.cat([X[:, :-1], S[:, lo:hi].expand(B, -1, -1, -1),
+                         Sm[:, lo:hi].expand(B, -1, -1, -1)], dim=2)
+              for lo, hi in zip(self.u_offsets[:-1], self.u_offsets[1:])]
+        eidx = plan['lifted_idx']
+
+        L = nq + 2 * nu
+        grads = [x.new_zeros(B, nd) for _ in range(M)]        # dJ^a/du
+        if hessian:
+            cx = x.new_zeros(M + 1, B, N, nq)                   # adjoint sources
+            cNx = x.new_zeros(M + 1, B, nq)
+            W = x.new_zeros(M + 1, B, N, L, L)                  # lifted stage Hessians
+            WN = x.new_zeros(M + 1, B, nq, nq)
+            games = torch.arange(B, device=x.device)[:, None, None, None]
+
+        def put(Ws, ks, ei, H):
+            # H (B, K, Lg, Lg) of agent-lifted coordinates into Ws[:, ks][ei x ei]
+            Ws.index_put_((games, ks[None, :, None, None], ei[None, None, :, None],
+                           ei[None, None, None, :]), H, accumulate=True)
+
+        def stage_group(fn, ks, z, du, w):
+            f = lambda zz: _as_rows(_call_stage(fn, zz[..., :nq], zz[..., nq:nq + du],
+                                                zz[..., nq + du:], P, ks), zz)
+            return _stage_derivs(f, z, w, hessian)
+
+        def term_group(fn, w):
+            f = lambda xx: _as_rows(_call_term(fn, xx, P, N), xx)
+            return _stage_derivs(f, x[:, N], w, hessian)
+
+        # ---- agent costs
+        for a in range(M):
+            da = self.num_ua_d[a]
+            for fn, ks in self._cost_groups[a]:
+                z = torch.cat([x[:, ks], ua[a][:, ks], uma[a][:, ks]], dim=-1)
+                J, gr, H = stage_group(fn, ks, z, da, z.new_ones(B, len(ks), 1))
+                grads[a] = grads[a] + torch.einsum('bkl,bkld->bd', J[..., 0, :], Za[a][:, ks])
+                if hessian:
+                    cx[a].index_add_(1, ks, gr[..., :nq])
+                    put(W[a], ks, eidx[a], H)
+            if self.costs[a][N] is not None:
+                J, gr, H = term_group(self.costs[a][N], x.new_ones(B, 1))
+                grads[a] = grads[a] + torch.einsum('bi,bid->bd', J[:, 0], X[:, N])
+                if hessian:
+                    cNx[a] += gr
+                    WN[a] += H
+
+        # ---- constraints (weighted by l): G rows in the order of _constraints_along
+        pieces = []
+        for (fn, ks), dest in zip(self._shared_groups, plan['shared_w']):
+            z = torch.cat([x[:, ks], u_mat[:, ks], um_mat[:, ks]], dim=-1)
+            J, gr, H = stage_group(fn, ks, z, nu, l[:, dest] if hessian else None)
+            pieces.append(torch.einsum('bkml,bkld->bkmd', J, Z[:, ks]).reshape(B, -1, nd))
+            if hessian:
+                cx[M].index_add_(1, ks, gr[..., :nq])
+                W[M].index_add_(1, ks, H)
+        for a in range(M):
+            da = self.num_ua_d[a]
+            for (fn, ks), dest in zip(self._agent_groups[a], plan['agent_w'][a]):
+                z = torch.cat([x[:, ks], ua[a][:, ks], uma[a][:, ks]], dim=-1)
+                J, gr, H = stage_group(fn, ks, z, da, l[:, dest] if hessian else None)
+                pieces.append(torch.einsum('bkml,bkld->bkmd', J, Za[a][:, ks])
+                              .reshape(B, -1, nd))
+                if hessian:
+                    cx[M].index_add_(1, ks, gr[..., :nq])
+                    put(W[M], ks, eidx[a], H)
+        if hessian:
+            lx = x.new_zeros(B, N, nq)          # state-box duals at stages 1..N
+        for a in range(M):
+            pieces += [p.expand(B, -1, -1) for p in plan['input_box'][a]]
+            for rows, idx, sign in zip(plan['state_box'][a], (self._sub_idx[a],
+                                                              self._slb_idx[a]), (1.0, -1.0)):
+                if rows is None:
+                    continue
+                pieces.append(sign * X[:, 1:, idx].reshape(B, -1, nd))
+                if hessian:
+                    lx.index_add_(2, idx, sign * l[:, rows].reshape(B, N, -1))
+        if hessian:
+            cx[M, :, 1:] += lx[:, :-1]
+            cNx[M] += lx[:, -1]
+        term_shared, term_agent = plan['term_w']
+        terms = [(self.shared_constraints[N], term_shared)] if self._m_shared[N] else []
+        terms += [(self.agent_constraints[a][N], term_agent[a]) for a in range(M)
+                  if self._m_agent[a][N]]
+        for fn, dest in terms:
+            J, gr, H = term_group(fn, l[:, dest] if hessian else None)
+            pieces.append(torch.einsum('bmi,bid->bmd', J, X[:, N]))
+            if hessian:
+                cNx[M] += gr
+                WN[M] += H
+        G = torch.cat(pieces, dim=1)[:, self._g_src] if pieces else x.new_zeros(B, 0, nd)
+
+        q = self._own_blocks(torch.stack(grads, dim=1))
+        if not hessian:
+            return q, G, g, x
+
+        # ---- Q^a rows = rows a of the Hessian of J^a + l'C: the sum of the two
+        # sigmas' stage terms, whose adjoints follow from one backward pass
+        cx = (cx[:M] + cx[M]).permute(1, 2, 0, 3)            # (B, N, M, nq)
+        lam = (cNx[:M] + cNx[M]).transpose(0, 1)              # (B, M, nq)
+        lams = [None] * N
+        for k in range(N - 1, -1, -1):
+            lams[k] = lam                                     # lambda_{k+1} of stage k
+            lam = torch.baddbmm(cx[:, k], lam, A[:, k])
+        lam = torch.stack(lams, dim=1)                        # (B, N, M, nq)
+        W = W[:M] + W[M]
+        W[..., :nz, :nz] += torch.einsum('bksi,bkijm->sbkjm', lam, T)
+        WN = WN[:M] + WN[M]
+        tmp = torch.einsum('sbklj,bkjd->sbkld', W, Z)
+        Q = []
+        for a in range(M):
+            lo, hi = int(self.ua_el_offsets[a]), int(self.ua_el_offsets[a + 1])
+            Xr = X[:, N, :, lo:hi]
+            Q.append(torch.einsum('bkla,bkld->bad', Z[..., lo:hi], tmp[a])
+                     + torch.einsum('bia,bij,bjd->bad', Xr, WN[a], X[:, N]))
+        return torch.cat(Q, dim=1), q, G, g, x
+
     def constraint_indices_for_agent(self, a: int) -> np.ndarray:
         """Row indices of the constraints entering agent a's best-response problem:
         shared rows + agent-a rows (incl. its box rows) at every stage."""
@@ -542,3 +775,47 @@ def _jac_rev(f, u, has_aux: bool = False):
     basis = torch.eye(out.shape[-1], dtype=out.dtype, device=out.device)
     jac = vmap(lambda e: vjp_fn(e.expand_as(out))[0])(basis).movedim(0, 1)
     return (jac, aux) if has_aux else jac
+
+
+def _as_rows(v, z):
+    """A stage function's value as rows: (..., m) over the leading shape of ``z``."""
+    return v.reshape(*z.shape[:-1], -1)
+
+
+def _stage_jac_fwd(f, z):
+    """Value and forward-mode Jacobian of a stage-separable ``f`` at a batch of stage
+    points ``z`` (..., L): each output (..., *) gets a Jacobian (..., *, L).  Every point
+    is seeded with the same basis vector, the L seeds mapped with ``torch.func.vmap``,
+    as in ``_jac_fwd``."""
+    basis = torch.eye(z.shape[-1], dtype=z.dtype, device=z.device)
+
+    def push(e):
+        return torch.func.jvp(f, (z,), (e.expand_as(z),))
+
+    out, jac = vmap(push)(basis)
+    tree_map = torch.utils._pytree.tree_map
+    return tree_map(lambda t: t[0], out), tree_map(lambda t: t.movedim(0, -1), jac)
+
+
+def _stage_jac_rev(f, z):
+    """Reverse-mode Jacobian (..., m, L) of a stage-separable ``f`` (..., m) at ``z``
+    (..., L): one cotangent per output row, seeded at every point at once."""
+    out, vjp_fn = torch.func.vjp(f, z)
+    basis = torch.eye(out.shape[-1], dtype=out.dtype, device=out.device)
+    return vmap(lambda e: vjp_fn(e.expand_as(out))[0])(basis).movedim(0, -2)
+
+
+def _stage_derivs(f, z, w, hessian: bool):
+    """Derivatives of a stage function ``f`` (..., m) at the points ``z`` (..., L):
+    its Jacobian (..., m, L) and, with ``hessian``, the gradient (..., L) and Hessian
+    (..., L, L) of the ``w``-weighted sum w'f, all from one forward-over-reverse call
+    (the forward tangents push the reverse gradient and the value together)."""
+    if not hessian:
+        return _stage_jac_fwd(f, z)[1], None, None
+
+    def grad_and_value(zz):
+        val, vjp_fn = torch.func.vjp(f, zz)
+        return vjp_fn(w)[0], val
+
+    (gr, _), (H, J) = _stage_jac_fwd(grad_and_value, z)
+    return J, gr, H

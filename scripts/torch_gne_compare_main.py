@@ -7,9 +7,11 @@ reports the normalized-MSE distribution, the equilibrium-match rate (the >= 95%
 agreement criterion) and where the two disagree (``dgsqp_torch.harness.analysis.
 gne_compare``).  It reads only the pickles, on the CPU.
 
-Usage:
+Usage (two agents; three for the merge, with one scale per input channel):
     python scripts/torch_gne_compare_main.py results/chicane_dgsqp.pkl \\
         results/chicane_mcp.pkl --N 25 --num_ua 2 2 --scale 2.1 0.436 2.1 0.436
+    python scripts/torch_gne_compare_main.py results/merge_dgsqp.pkl \\
+        results/merge_mcp.pkl --N 20 --num_ua 2 2 2 --scale 2.1 0.436 2.1 0.436 2.1 0.436
 """
 import sys
 from pathlib import Path
@@ -32,8 +34,8 @@ def main(argv=None):
     ap.add_argument('--layout_b', default='agent_flat', choices=['agent_flat', 'stage'],
                     help="'stage' for an ALGAMES study (its inputs are stage-major)")
     ap.add_argument('--scale', type=float, nargs='+', default=None,
-                    help='per-channel input normalization (the input bounds, e.g. '
-                         '2.1 0.436 per agent)')
+                    help='per-channel input normalization, one value per input channel '
+                         '(e.g. 2.1 0.436 per agent)')
     ap.add_argument('--match_tol', type=float, default=0.1)
     ap.add_argument('--success', default='abs', choices=['abs', 'any'])
     # cross-formulation comparison (exact vs progress-augmented): select the shared
@@ -44,6 +46,10 @@ def main(argv=None):
     ap.add_argument('--keep_cols_b', type=int, nargs='+', default=None)
     ap.add_argument('--out', default=None)
     args = ap.parse_args(argv)
+    channels = len(args.keep_cols_a) if args.keep_cols_a else sum(args.num_ua)
+    if args.scale is not None and len(args.scale) != channels:
+        ap.error(f'--scale takes one value per input channel: {channels} here, '
+                 f'{len(args.scale)} given')
 
     from dgsqp_torch.harness.analysis import gne_compare
 

@@ -22,6 +22,13 @@ Examples:
     python scripts/torch_monte_carlo_main.py --scenario chicane --solver mcp --n 128
     python scripts/torch_monte_carlo_main.py --scenario chicane --solver algames --n 16
     python scripts/torch_monte_carlo_main.py --scenario chicane --solver dgsqp --ibr_ws
+    python scripts/torch_monte_carlo_main.py --scenario merge --solver dgsqp \\
+        --dtype float64 --n 128
+
+The output's name holds the scenario, solver, formulation, n and seed, and a part for
+each option that changes the result and is not at its default (``option_tag``); with
+``--skip_existing`` a run whose output exists is skipped.  ``--scenario merge`` caps
+the horizon at 20, as the JAX script does.
 """
 import sys
 from pathlib import Path
@@ -29,18 +36,61 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import argparse
 import json
+import os
 
 # choices of scripts/monte_carlo_main.py; scenarios outside PORTED_SCENARIOS exit with
 # code 2
 SCENARIOS = ['chicane', 'curve', 'merge', 'agents', 'dynamic', 'duel']
 SOLVERS = ['dgsqp', 'dgsqp_v2', 'algames', 'mcp']
-PORTED_SCENARIOS = ('chicane', 'curve', 'agents', 'duel')
+PORTED_SCENARIOS = ('chicane', 'curve', 'merge', 'agents', 'duel')
 # the oracles' default dtype: the AL penalty climbs to 1e7 and the MCP certifies a
 # 1e-3 residual of an ill-conditioned system, which float32 cannot carry
 ORACLES = ('algames', 'mcp')
 
 
-def main(argv=None):
+def option_tag(args, ap) -> str:
+    """The part of a study's output name that its options make: the reg tag of the JAX
+    script, then one part for each other option that changes the result and differs
+    from its default (the dtype from the solver's own default, the oracle's budget from
+    its environment defaults), so that no two such runs share a name and a run with
+    the defaults keeps the JAX script's name."""
+    approx = args.formulation == 'approximate'
+    tag = '_ref' if args.reference_faithful else ''
+    if args.reg_init is not None or args.reg_decay is not None:
+        tag = f'_reg{args.reg_init if args.reg_init is not None else "d"}' \
+              f'_decay{args.reg_decay if args.reg_decay is not None else "d"}'
+        if approx:
+            tag += f'_{args.eval_type}'
+    elif approx and args.eval_type != 'exact':
+        tag += f'_{args.eval_type}'
+    for name, part in (('merit_function', 'mf'), ('merit_decrease_condition', 'md'),
+                       ('sqp_iters', 'it'), ('p_tol', 'ptol'), ('d_tol', 'dtol'),
+                       ('conv', 'conv'), ('nms_frequency', 'nmsf'), ('nms_memory', 'nmsm'),
+                       ('delta0', 'delta0'), ('dgsqp_ws', 'dgsqpws')):
+        value = getattr(args, name)
+        if value != ap.get_default(name):
+            tag += f'_{part}{value}'
+    if args.no_nms:
+        tag += '_nonms'
+    if args.ibr_ws:
+        tag += '_ibrws'
+    if args.dtype not in (None, default_dtype(args.solver)):
+        tag += f'_{args.dtype}'
+    if args.solver == 'mcp':
+        for env, part, default in (('DGSQP_MCP_METHOD', 'mcp', 'hybrid'),
+                                   ('DGSQP_MCP_ITERS', 'mcpit', '200'),
+                                   ('DGSQP_MCP_RESTARTS', 'mcprs', '4')):
+            value = os.environ.get(env, default)
+            if value != default:
+                tag += f'_{part}{value}'
+    return tag
+
+
+def default_dtype(solver: str) -> str:
+    return 'float64' if solver in ORACLES else 'float32'
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument('--scenario', default='chicane', choices=SCENARIOS,
                     help="'duel' = the comparison-study game (exact formulation: "
@@ -89,6 +139,37 @@ def main(argv=None):
                     help='float64 for --solver mcp|algames, float32 otherwise')
     ap.add_argument('--skip_existing', action='store_true',
                     help='skip configs whose output pickle already exists')
+    return ap
+
+
+def build_scenario(args):
+    """The scenario the options name (the ported ones only)."""
+    from dgsqp_torch.harness.scenarios import (build_agents_scenario,
+                                               build_approximate_duel,
+                                               build_chicane_scenario,
+                                               build_curve_scenario, build_exact_duel,
+                                               build_merge_scenario)
+    if args.formulation == 'approximate':
+        return build_approximate_duel(N=args.N, rate_constraints=not args.reference_faithful)
+    if args.scenario == 'duel':
+        return build_exact_duel(N=args.N)
+    if args.scenario == 'chicane':
+        return build_chicane_scenario(N=args.N, theta_deg=args.theta)
+    if args.scenario == 'curve':
+        return build_curve_scenario(N=args.N, theta_deg=max(args.theta, 60.0))
+    if args.scenario == 'merge':
+        return build_merge_scenario(N=min(args.N, 20))
+    return build_agents_scenario(M=args.agents, N=args.N, theta_deg=args.theta)
+
+
+def output_path(args, ap, scenario) -> Path:
+    """Where the study of these options writes its pickle (and its JSON beside)."""
+    return Path(args.out) / (f'{scenario.name}_{args.solver}_{args.formulation}'
+                             f'{option_tag(args, ap)}_n{args.n}_s{args.seed}.pkl')
+
+
+def main(argv=None):
+    ap = parser()
     args = ap.parse_args(argv)
 
     approx = args.formulation == 'approximate'
@@ -99,44 +180,19 @@ def main(argv=None):
               file=sys.stderr)
         sys.exit(2)
 
-    import os
-
     import torch
 
     from dgsqp_torch.harness.mc_study import analyze_results, run_mc_study, save_results
-    from dgsqp_torch.harness.scenarios import (build_agents_scenario,
-                                               build_approximate_duel,
-                                               build_chicane_scenario,
-                                               build_curve_scenario, build_exact_duel)
     from dgsqp_torch.solvers.dgsqp_v2 import DGSQPV2
     from dgsqp_torch.solvers.dgsqp_v2_frenet import DGSQPV2FrenetApprox
     from dgsqp_torch.solvers.solver_types import DGSQPParams, DGSQPV2Params
 
-    dtype = getattr(torch, args.dtype or
-                    ('float64' if args.solver in ORACLES else 'float32'))
+    dtype = getattr(torch, args.dtype or default_dtype(args.solver))
     # the bench's rule (``build_bench_solver``): the parameters' default of 1e-8 is below
     # what a float32 QP can certify, and a QP that misses it counts as failed
     qp_tol = 1e-8 if dtype == torch.float64 else 3e-7
-    if approx:
-        scenario = build_approximate_duel(N=args.N,
-                                          rate_constraints=not args.reference_faithful)
-    elif args.scenario == 'duel':
-        scenario = build_exact_duel(N=args.N)
-    elif args.scenario == 'chicane':
-        scenario = build_chicane_scenario(N=args.N, theta_deg=args.theta)
-    elif args.scenario == 'curve':
-        scenario = build_curve_scenario(N=args.N, theta_deg=max(args.theta, 60.0))
-    else:
-        scenario = build_agents_scenario(M=args.agents, N=args.N, theta_deg=args.theta)
-
-    reg_tag = '_ref' if args.reference_faithful else ''
-    if args.reg_init is not None or args.reg_decay is not None:
-        reg_tag = f'_reg{args.reg_init if args.reg_init is not None else "d"}' \
-                  f'_decay{args.reg_decay if args.reg_decay is not None else "d"}'
-        if approx:
-            reg_tag += f'_{args.eval_type}'
-    out_name = Path(args.out) / (f'{scenario.name}_{args.solver}_{args.formulation}'
-                                 f'{reg_tag}_n{args.n}_s{args.seed}.pkl')
+    scenario = build_scenario(args)
+    out_name = output_path(args, ap, scenario)
     if args.skip_existing and out_name.exists():
         print(f'skip (exists): {out_name}', file=sys.stderr)
         return

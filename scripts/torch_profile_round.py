@@ -11,6 +11,8 @@ and times, with host clocks around work that ends in a ``torch.cuda.synchronize(
   Cholesky kernels), a line search of all trials (``merit_terms`` on batch x 20 for v1,
   batch x 50 for v2, batch x 10 for approx), and the first-derivative ``evaluate``
   (``finalize`` of v1; the full-step trial of a v2 m-step);
+* ``evaluate`` and ``evaluate_dp`` (the stage-wise derivatives), each with and without
+  the Hessian: the time of a call and the CUDA launches of one (``torch.profiler``);
 * whole rounds from the initial carry (v1: the flat machine; v2: with the number of
   games for which the round ran the full-step trial and the line search, since a v2
   round runs them only for the games that take an m-step);
@@ -21,6 +23,10 @@ and times, with host clocks around work that ends in a ``torch.cuda.synchronize(
 Usage (from the repository root, on the machine with the card):
 
     python3 scripts/torch_profile_round.py [--solver v1|v2|approx] [--batch 256] [--rounds 6]
+    DGSQP_BENCH_HESS=dp python3 scripts/torch_profile_round.py   # rounds on evaluate_dp
+
+The rounds take their game derivatives as ``DGSQP_BENCH_HESS`` says (``ad``, the
+default, or ``dp``; ``build_bench_solver``).
 
 Prints one JSON object; with ``--out PATH`` also writes it there.
 """
@@ -57,6 +63,12 @@ def main():
                                  dtype=torch.float32, device='cuda')
     u0, l0, x0, up = build_bench_batch(sc, sol, args.batch, seed=0)
 
+    def launches_of(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
     def timed(fn, reps=3):
         fn()
         torch.cuda.synchronize()
@@ -85,6 +97,18 @@ def main():
         'evaluate_first_derivatives_s': timed(
             lambda: sol.problem.evaluate(u0, None, x0, up, hessian=False)),
     }
+    # the two ways to the game derivatives, with and without the Hessian: time per call
+    # and the CUDA launches of one call
+    derivs = {
+        'evaluate_hessian': lambda: sol.problem.evaluate(u0, l0, x0, up),
+        'evaluate_dp_hessian': lambda: sol.problem.evaluate_dp(u0, l0, x0, up),
+        'evaluate_first_derivatives': lambda: sol.problem.evaluate(u0, None, x0, up,
+                                                                   hessian=False),
+        'evaluate_dp_first_derivatives': lambda: sol.problem.evaluate_dp(u0, None, x0, up,
+                                                                         hessian=False),
+    }
+    evaluate_modes = {name: {'s': timed(fn), 'cuda_launches': launches_of(fn)}
+                      for name, fn in derivs.items()}
 
     from dgsqp_torch.ops import linalg
     for wrapper in (linalg.cholesky, linalg.cho_solve):
@@ -134,7 +158,9 @@ def main():
 
     result = {
         'card': card, 'solver': args.solver, 'batch': args.batch, 'horizon': args.horizon,
-        'pieces': pieces, 'kernel_launches_per_qp': qp_launches, 'round_s': rounds,
+        'hessian_mode': sol.params.hessian_mode, 'pieces': pieces,
+        'evaluate_modes': evaluate_modes, 'kernel_launches_per_qp': qp_launches,
+        'round_s': rounds,
         'round_games': round_rows if v2 else None,
         'profiled_rounds': 2, 'profiled_wall_s': wall,
         'device_busy_s': busy_us * 1e-6,

@@ -31,6 +31,7 @@ from dgsqp_torch.solvers.solver_types import ALGAMESParams
 from dgsqp_torch.types import VehicleState
 
 from test_torch_v2_games import DT, N, jax_game, torch_game
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GAMES = 4
 PARAMS = dict(outer_iters=30, newton_iters=50, line_search_iters=50, ineq_tol=1e-6,

@@ -15,6 +15,7 @@ from dgsqp_torch.harness.bench_setup import build_bench_batch, build_bench_solve
 from dgsqp_torch.solvers.dgsqp_v2_frenet import DGSQPV2FrenetApprox
 
 from test_torch_approx_duel import N, _same_result, share_geometry
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_bench_chunk_matches_jax():

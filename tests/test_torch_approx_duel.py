@@ -39,6 +39,8 @@ from dgsqp_torch.solvers.dgsqp import SQPResult
 from dgsqp_torch.solvers.dgsqp_v2_frenet import DGSQPV2FrenetApprox
 from dgsqp_torch.solvers.solver_types import DGSQPV2Params
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
+
 N = 5
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 X0 = np.array([0.3, 0.2, 1.5, 0.0, 0.3, 0.9, -0.2, 1.5, 0.0, 0.9])
@@ -167,7 +169,8 @@ def test_study_script_approximate_formulation(tmp_path, capsys):
                     '--n', '4', '--N', str(N), '--out', str(tmp_path)])
     out = capsys.readouterr().out
     assert '"solver": "DGSQPV2FrenetApprox"' in out and '"total": 4' in out
-    assert list(tmp_path.glob('approx_duel_dgsqp_approximate_n4_s0.pkl'))
+    # float64 is off the solver's default (float32): the output's name says so
+    assert list(tmp_path.glob('approx_duel_dgsqp_approximate_float64_n4_s0.pkl'))
     with pytest.raises(SystemExit) as exc:
         _script().main(['--scenario', 'dynamic', '--formulation', 'approximate',
                         '--device', 'cpu'])

@@ -12,6 +12,7 @@ from dgsqp_torch import interop
 from dgsqp_torch.solvers.dgsqp import RUNNING
 
 from test_torch_approx_duel import X0, _same_result, _solvers
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def check_solver_matches_jax(mode):

@@ -6,6 +6,7 @@ modes: ``'once'`` (the linearisation recomputed once per SQP iteration) and ``'a
 import pytest
 
 from test_torch_approx_solver import check_solver_matches_jax
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize('mode', ['once', 'always'])

@@ -33,6 +33,7 @@ from dgsqp_torch.solvers.mcp import SOLVED, PATHMCP
 from dgsqp_torch.solvers.solver_types import PATHMCPParams
 
 from test_torch_mcp_chicane import chicane_pair
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N, GAMES = 5, 4
@@ -88,7 +89,8 @@ def test_study_scripts_run_the_oracle(tmp_path, capsys, monkeypatch):
          '--device', 'cpu', '--out', str(tmp_path)])
     stats = json.loads(capsys.readouterr().out)
     assert stats['total'] == GAMES and stats['provenance']['dtype'] == 'float64'
-    pkl = tmp_path / f'chicane_t45_N{N}_mcp_exact_n{GAMES}_s0.pkl'
+    # the oracle's method and budget are off their defaults: the output's name says so
+    pkl = tmp_path / f'chicane_t45_N{N}_mcp_exact_mcpfbnewton_mcpit40_n{GAMES}_s0.pkl'
     with open(pkl, 'rb') as f:
         res = pickle.load(f)
     assert res.solver == 'PATHMCP' and res.provenance['params']['method'] == 'fbnewton'

@@ -20,6 +20,8 @@ import torch
 from dgsqp_tpu.tracks import bspline as jbs
 from dgsqp_torch.tracks import bspline as tbs
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-12
 
 

@@ -21,6 +21,8 @@ from dgsqp_torch import interop
 from dgsqp_torch.harness.bench_setup import build_bench_batch, build_bench_solver
 from dgsqp_torch.solvers.dgsqp import CONV_ABS, CONV_REL, FM_FB, FM_INS2, SQPResult
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
+
 N, BATCH = 5, 4
 # perturbation of the warm start that makes these 4 games visit the watchdog's
 # insurance (FM_INS2) and fallback (FM_FB) modes and one diverge

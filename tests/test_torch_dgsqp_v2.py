@@ -25,6 +25,7 @@ from dgsqp_torch.solvers.solver_types import DGSQPParams, DGSQPV2Params
 from dgsqp_torch.types import VehicleState
 
 from test_torch_v2_games import DT, N, make_solvers, torch_game
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-8
 
@@ -103,10 +104,6 @@ def test_unported_machines_raise():
     with pytest.raises(NotImplementedError):        # default parameters: nested machine
         DGSQP(joint, costs, [None, None], shared, bounds, DGSQPParams(N=N, dt=DT),
               print_method=None, dtype=torch.float64, device='cpu')
-    with pytest.raises(NotImplementedError):
-        DGSQPV2(joint, costs, [None, None], shared, bounds,
-                DGSQPV2Params(N=N, dt=DT, hessian_mode='dp'), print_method=None,
-                dtype=torch.float64, device='cpu')
     v1 = DGSQP(joint, costs, [None, None], shared, bounds,
                DGSQPParams(N=N, dt=DT, nonmono_ls=True), print_method=None,
                dtype=torch.float64, device='cpu')

@@ -42,6 +42,7 @@ from dgsqp_torch.solvers.dgsqp_v2 import DGSQPV2, _CarryV2
 from dgsqp_torch.solvers.solver_types import DGSQPV2Params
 
 from test_torch_v2_games import DT, N, make_solvers
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B = 24     # not a power of two, so that the compaction pads its bucket
 ROUNDS = 12

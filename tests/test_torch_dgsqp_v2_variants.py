@@ -21,6 +21,7 @@ from dgsqp_torch.solvers.dgsqp_v2 import DGSQPV2
 from dgsqp_torch.solvers.solver_types import DGSQPV2Params
 
 from test_torch_v2_games import DT, N, make_solvers
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B = 24
 BASE = dict(reg=1.0, reg_decay=0.5, nms=True, nms_frequency=3, sqp_iters=200, p_tol=1e-7,

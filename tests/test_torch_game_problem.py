@@ -16,6 +16,8 @@ from dgsqp_tpu.solvers.game_problem import GameProblem as JaxGameProblem
 from dgsqp_torch.harness.scenarios import build_chicane_scenario as torch_chicane
 from dgsqp_torch.solvers.game_problem import GameProblem
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
+
 N, B = 5, 4
 TOL = 1e-10
 

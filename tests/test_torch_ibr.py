@@ -33,6 +33,7 @@ from dgsqp_torch.solvers.solver_types import IBRParams
 from dgsqp_torch.types import VehicleState
 
 from test_torch_v2_games import DT, N, _bounds
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GAMES = 4
 

@@ -11,8 +11,10 @@
 * ``analysis.summarize``, ``gne_compare``, ``success_locations`` and ``format_table``
   give the same output as the JAX package's on the same two ``MCResults`` (the study and
   the study after the retries), carried across field by field.
-* ``scripts/torch_monte_carlo_main.py --device cpu`` writes its ``.pkl`` and ``.json``;
-  a scenario that is not ported exits with code 2; multi-GPU sharding raises
+* ``scripts/torch_monte_carlo_main.py --device cpu`` writes its ``.pkl`` and ``.json``
+  under a name that holds every option off its default, so that the option sets of
+  ``scripts/run_ablation_study.sh`` write distinct outputs; a scenario that is not
+  ported exits with code 2; multi-GPU sharding raises
   ``NotImplementedError`` (the IBR warm start and the baselines' studies are held
   against the JAX package in ``test_torch_baselines_study.py`` and
   ``test_torch_algames_study.py``).
@@ -40,6 +42,8 @@ from dgsqp_torch.harness.scenarios import build_agents_scenario
 from dgsqp_torch.solvers.dgsqp import CONV_ABS, CONV_REL, STALLED, SQPResult
 from dgsqp_torch.solvers.dgsqp_v2 import DGSQPV2
 from dgsqp_torch.solvers.solver_types import DGSQPV2Params
+
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 M, N, SAMPLES = 3, 6, 8
@@ -189,7 +193,10 @@ def test_script_writes_results_on_the_cpu(tmp_path, capsys, dtype, qp_tol):
                     '--sqp_iters', '3', '--reg_init', '1e-3', '--reg_decay', '1.0',
                     '--device', 'cpu', '--dtype', dtype, '--out', str(tmp_path)])
     printed = json.loads(capsys.readouterr().out)
-    name = 'curve_t60_N4_dgsqp_v2_exact_reg0.001_decay1.0_n4_s0'
+    # the options off their defaults name the output: the iteration budget, and float64
+    # where the solver's default is float32
+    name = 'curve_t60_N4_dgsqp_v2_exact_reg0.001_decay1.0_it3' \
+        + ('_float64' if dtype == 'float64' else '') + '_n4_s0'
     with open(tmp_path / f'{name}.pkl', 'rb') as f:
         res = pickle.load(f)
     saved = json.loads((tmp_path / f'{name}.json').read_text())
@@ -202,13 +209,68 @@ def test_script_writes_results_on_the_cpu(tmp_path, capsys, dtype, qp_tol):
     assert (res.statuses != 0).all()
 
 
-@pytest.mark.parametrize('argv', [['--scenario', 'merge'], ['--scenario', 'dynamic'],
+@pytest.mark.parametrize('argv', [['--scenario', 'dynamic'],
                                   ['--scenario', 'dynamic', '--formulation', 'approximate']])
 def test_script_exits_2_for_what_is_not_ported(argv, capsys):
     with pytest.raises(SystemExit) as exc:
         _script().main(argv + ['--device', 'cpu'])
     assert exc.value.code == 2
     assert 'not' in capsys.readouterr().err
+
+
+def _ablation_option_sets():
+    """The option sets of ``scripts/run_ablation_study.sh``: its loops expanded, its
+    sample count and output directory substituted."""
+    text = (ROOT / 'scripts' / 'run_ablation_study.sh').read_text()
+    lines = text.replace('\\\n', ' ').splitlines()
+    loops, sets = {}, []
+    for ln in lines:
+        ln = ln.strip()
+        if ln.startswith('for ') and ' in ' in ln:
+            var, values = ln[4:].split(' in ', 1)
+            loops[var.strip()] = values.split(';')[0].split()
+        elif 'monte_carlo_main.py' in ln:
+            argv = ln.split('monte_carlo_main.py', 1)[1].split()
+            argv = [a.replace('$N_SAMPLES', '100').replace('$OUT', 'out') for a in argv]
+            names = [v for v in loops if any(f'${v}' in a for a in argv)]
+            combos = [{}]
+            for v in names:
+                combos = [dict(c, **{v: x}) for c in combos for x in loops[v]]
+            for c in combos:
+                sets.append([a if not a.startswith('$') else c[a[1:]] for a in argv])
+    return sets
+
+
+def test_ablation_option_sets_get_distinct_names():
+    """Every option set of the ablation study writes an output of its own (the option
+    names the JAX script leaves out of its outputs' names collided there), and the
+    defaults keep the JAX script's name."""
+    script = _script()
+    sets = _ablation_option_sets()
+    assert len(sets) == 6
+    paths = []
+    for argv in sets:
+        ap = script.parser()
+        args = ap.parse_args(argv)
+        paths.append(script.output_path(args, ap, script.build_scenario(args)))
+    assert len(set(paths)) == len(paths), paths
+    ap = script.parser()
+    args = ap.parse_args(['--scenario', 'chicane', '--solver', 'dgsqp_v2', '--n', '100'])
+    assert script.output_path(args, ap, script.build_scenario(args)).name == \
+        'chicane_t45_N25_dgsqp_v2_exact_n100_s0.pkl'
+    # one option off its default at a time: a name of its own each
+    base = ['--scenario', 'chicane', '--solver', 'mcp', '--n', '8']
+    variants = [[], ['--dtype', 'float32'], ['--ibr_ws'], ['--dgsqp_ws', '10'],
+                ['--sqp_iters', '30'], ['--p_tol', '1e-4'], ['--d_tol', '1e-4'],
+                ['--conv', 'eigh'], ['--no_nms'], ['--merit_function', 'sum_obj_l1'],
+                ['--merit_decrease_condition', 'max'], ['--nms_frequency', '3'],
+                ['--nms_memory', '3'], ['--delta0', '0']]
+    names = set()
+    for extra in variants:
+        ap = script.parser()
+        args = ap.parse_args(base + extra)
+        names.add(script.output_path(args, ap, script.build_scenario(args)).name)
+    assert len(names) == len(variants)
 
 
 def test_unported_study_options_raise():

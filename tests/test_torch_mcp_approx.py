@@ -24,6 +24,7 @@ from dgsqp_torch.solvers.solver_types import PATHMCPParams
 
 from test_torch_approx_duel import X0, share_geometry
 from test_torch_mcp import compare_results
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N = 5
 

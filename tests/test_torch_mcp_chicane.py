@@ -24,6 +24,7 @@ from dgsqp_torch.solvers.mcp import RUNNING, PATHMCP
 from dgsqp_torch.solvers.solver_types import PATHMCPParams
 
 from test_torch_mcp import CORES, compare_carries, compare_results, jax_trace, port_trace
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N, GAMES, ITERS = 5, 4, 40
 ORACLE = dict(N=N, dt=0.1, tol=1e-3, max_iters=ITERS, max_restarts=4)

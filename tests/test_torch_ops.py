@@ -14,6 +14,8 @@ import torch
 from dgsqp_tpu.ops import linalg_pallas as jlin
 from dgsqp_torch.ops import linalg
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
+
 RTOL = 1e-12
 
 

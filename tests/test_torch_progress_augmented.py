@@ -32,6 +32,8 @@ from dgsqp_torch.dynamics.progress_augmented import KinematicBicycleProgressAugm
 from dgsqp_torch.harness.scenarios import build_approximate_duel
 from dgsqp_torch.tracks.bspline import BSplineTrack
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-12
 QC, QL = 0.1, 1000.0
 

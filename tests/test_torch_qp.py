@@ -14,6 +14,8 @@ import torch
 from dgsqp_tpu.solvers.qp import solve_qp as jax_solve_qp
 from dgsqp_torch.solvers.qp import solve_qp as torch_solve_qp
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-8
 
 

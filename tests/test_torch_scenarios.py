@@ -23,6 +23,8 @@ from dgsqp_torch import interop
 from dgsqp_torch.harness import samplers, scenarios
 from dgsqp_torch.solvers.game_problem import GameProblem
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
+
 N = 6
 FACTORIES = {
     'curve': (lambda m: m.build_curve_scenario(N=N), 'sample_duel_initial_conditions'),

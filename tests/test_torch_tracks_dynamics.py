@@ -17,6 +17,8 @@ from dgsqp_torch.harness.scenarios import build_chicane_scenario as torch_chican
 from dgsqp_torch.tracks import CurveTrack, StraightTrack
 from dgsqp_tpu.tracks import CurveTrack as JCurveTrack, StraightTrack as JStraightTrack
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-12
 
 
