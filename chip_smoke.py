@@ -65,11 +65,33 @@ Phases, each printing one line on stdout:
    ``evaluate``, both with the Hessian in float32 on the card, on the bench batch (256
    games at the warm start) and on the merge's 128 games: relative differences of Q, q,
    G and g, the median time of a call of each and the CUDA launches of one.
+14. ``dynamic_parity``: as ``parity``, on 16 games of the exact dynamic duel (two
+   dynamic bicycles on ``L_track_barc``, N=15, n = 60, DGSQP v2's study parameters) and
+   of the approximate dynamic duel (progress-augmented dynamic bicycles,
+   ``DGSQPV2FrenetApprox``, n = 90): the dynamic bicycle's step and its derivatives run
+   in ``dyn_step.cu`` on the card and in its plain version on the CPU.  The card's
+   float32 is held to ``DERIV_RTOL``/``STEP_RTOL`` against the CPU's float32 in every
+   quantity, and against the CPU's float64 in all but the approximate duel's gradient
+   and step (``APPROX_F32_FREE``: its lag cost moves them in float32 on any device;
+   they are reported).
+15. ``dynamic_path`` and ``f1_path``: the exact dynamic duel's study in the JAX
+   record's configuration (``--scenario dynamic --n 64 --N 15 --solver dgsqp_v2``,
+   ``run_mc_study``, float32, seed 0) beside the TPU float32 record, and the F1 study
+   (``run_f1_study(N=15, num_samples=64, seed=0)`` with ``f1_solver_params(15,
+   sqp_iters=150, approximation_eval='exact')``, float32; the repo's first F1 row).
+   They run one after the other in a process of their own (``chip_smoke.py
+   --dynamic-paths``), started with the merge's and joined after it; their lines are
+   printed when it ends.  Both kernels must launch at the paths' sizes (n = 60 and the
+   polish's 48 rows; n = 90 and 64), and ``dyn_step`` in both.
+
+``kernels`` also holds ``dyn_step.cu`` (the dynamic bicycle's step with its Jacobian and
+second derivatives, all three orders) against its plain version at the paths' points.
 
 The launch counts are set to 0 just before each path and read just after; each path
 that runs the kernels fails if one was not launched in it.  Then one JSON line of
-per-kernel numbers (``launches`` is the count of ``v2_path``, ``launches_by_path`` has
-every path), and last ``{"ok": true, "device": ...}``.  Every line also goes to
+per-kernel numbers (``launches`` is the count of ``v2_path`` for the linear-algebra
+kernels and of ``dynamic_path`` for ``dyn_step``, ``launches_by_path`` has every path),
+and last ``{"ok": true, "device": ...}``.  Every line also goes to
 ``build/chip_smoke.jsonl`` (the kernels line alone is longer than a caller may see of
 the output's tail).
 Any failed check raises and the script exits non-zero; without a card it exits
@@ -145,6 +167,34 @@ MERGE_KERNEL_NS = (120, 80)
 # says), summed in another order, so the two differ by about as much
 DP_RTOL = 1e-4
 DP_GAMES = 256
+# the dynamic duel's study (the JAX record's r5 command): N = 15, n = 2 x 2 x 15 = 60
+# decisions and the polish's max(48, 60 // 2 + 14) = 48 rows; the TPU float32 record
+# (results/r5/dynamic_duel_N15_c0_dgsqp_v2_exact_n64_s0.json) converges 0.656 (18
+# conv_abs + 24 conv_rel of 64); the limit sits below it by the other paths' kind of
+# margin and far above a broken solver (~0); the record is a first draft, so the limit
+# is not drawn to the port's own count
+DYN_GAMES, DYN_N = 64, 15
+DYN_CONV_ANY_MIN = 0.45
+DYN_KERNEL_NS = (60, 48)
+DYN_RECORD = dict(conv_abs_tol=18, conv_rel_tol=24, qp_fail=1, max_it=21, mean_iters=179.05,
+                  max_iters=288, feas_violation_max=0.0649, success_rate=0.65625)
+# the F1 study (the r5 command: --n 64 --N 15 --solvers dgsqp): two progress-augmented
+# dynamic bicycles, n = 2 x 3 x 15 = 90 and the polish's max(48, 45 + 14) = 59 rows,
+# padded to 64; there is no record to hold it to
+F1_GAMES, F1_N = 64, 15
+F1_KERNEL_NS = (90, 64)
+# dynamic_parity: the approximate dynamic duel's gradient and step, held to the CPU in
+# float32 but not to float64: its lag cost (weight 1000 on the lag error, a difference
+# of ~5 m positions) on a 150-sub-step float32 rollout moves q by ~2.5e-3 and the
+# ill-conditioned QP step by ~0.3 of their largest entries, the same on the CPU and with
+# torch.func's derivatives in place of the fused step's, and the JAX package's own
+# float32 by ~5e-3 on q (tests/test_torch_f32_sensitivity.py)
+APPROX_F32_FREE = ('q', 'du')
+# dyn_step against its plain version, both in float32 on the same points: the two
+# round ~40 fc evaluations differently (fused multiply-adds, the device's elementary
+# functions), ~1e-6 of each quantity's largest entry
+DYN_KERNEL_RTOL = {'float32': 1e-4, 'float64': 1e-10}
+
 # ALGAMES on the first games of the oracle study (8: the first cut the time limit asked
 # for; a Newton iteration is host-bound, so 16 games cost about 1.6x as long); its match
 # with DGSQP is checked when at least ALGAMES_MIN_BOTH games converge in both
@@ -222,10 +272,16 @@ def phase_build():
              for name, log in reports.items()}
     card = gpu_name_and_limit()
     print(card, flush=True)
-    emit({'phase': 'build', 'seconds': round(seconds, 3), 'card': card, 'ptxas': ptxas})
-    spilled = [ln for lines in ptxas.values() for ln in lines
-               if 'spill' in ln and not ln.startswith('0 bytes stack frame, 0 bytes spill stores, '
-                                                      '0 bytes spill loads')]
+    spills = {name: [ln for ln in lines if 'spill' in ln
+                     and not ln.startswith('0 bytes stack frame, 0 bytes spill stores, '
+                                           '0 bytes spill loads')]
+              for name, lines in ptxas.items()}
+    emit({'phase': 'build', 'seconds': round(seconds, 3), 'card': card, 'ptxas': ptxas,
+          'spills_and_stack': spills})
+    # the linear-algebra kernels hold their work in registers and shared memory; the
+    # dynamics step keeps its hyper-dual state in local memory by design (its stack
+    # frame and spills are reported above)
+    spilled = [ln for name in ('chol', 'cho_solve') for ln in spills.get(name, [])]
     if spilled:
         raise AssertionError(f'ptxas reports register spills: {spilled}')
     return card
@@ -276,14 +332,16 @@ def phase_kernels(device='cuda', shapes=None, time_it=True):
     shapes = shapes or {
         'chol': [(256, 100, 0), (256, 64, 0), (5, 37, 0), (64, 150, 0),
                  (16, 36, 0), (16, 48, 0), (256, 150, 0), (256, 96, 0), (256, 50, 0),
-                 (256, 48, 0), (128, 120, 0), (128, 80, 0)],
+                 (256, 48, 0), (128, 120, 0), (128, 80, 0), (64, 60, 0), (64, 48, 0),
+                 (64, 90, 0), (64, 64, 0)],
         'cho_solve': [(256, 100, 1), (256, 100, 64), (256, 64, 1), (5, 37, 3), (256, 100, 8),
                       (256, 100, linalg.WARP_PATH_MAX_K), (256, 100, linalg.WARP_PATH_MAX_K + 1),
                       (256, 100, 33), (5, 37, 33), (64, 150, 1), (64, 150, 64),
                       (16, 36, 1), (16, 36, 36), (16, 36, 48), (16, 48, 1),
                       (256, 150, 1), (256, 150, 96), (256, 96, 1), (256, 50, 1),
                       (256, 50, 48), (256, 48, 1), (128, 120, 1), (128, 120, 80),
-                      (128, 80, 1)]}
+                      (128, 80, 1), (64, 60, 1), (64, 60, 48), (64, 48, 1), (64, 90, 1),
+                      (64, 90, 64), (64, 64, 1)]}
     rows = []
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split('.')[-1]
@@ -326,11 +384,116 @@ def phase_kernels(device='cuda', shapes=None, time_it=True):
                     row['bound_ms'], row['bound_by'] = bound(kind, B, n, k, dname)
                 rows.append(row)
         rows.append(check_non_pd(dtype, device, gen))
-    emit({'phase': 'kernels', 'kernels': ['chol', 'cho_solve'],
+        rows += dyn_step_rows(dtype, device, time_it)
+    from dgsqp_torch.ops.dynamics import dyn_step
+    emit({'phase': 'kernels', 'kernels': ['chol', 'cho_solve', 'dyn_step'],
           'launches_in_this_phase': {'chol': linalg.cholesky.launches,
-                                     'cho_solve': linalg.cho_solve.launches},
+                                     'cho_solve': linalg.cho_solve.launches,
+                                     'dyn_step': dyn_step.launches},
           'shapes': rows})
     return [r for r in rows if r['kernel'] != 'non_pd']
+
+
+def dyn_models():
+    """The dynamic bicycles of the two paths: the exact duel's (BARC car on
+    ``L_track_barc``) and the F1 study's progress-augmented car on its segment."""
+    from dgsqp_torch.harness.f1_study import build_f1_scenario
+    from dgsqp_torch.harness.scenarios import build_dynamic_duel
+    return {'combined': build_dynamic_duel(N=DYN_N).joint_model.dynamics_models[0],
+            'progress': build_f1_scenario(N=F1_N).joint_model.dynamics_models[0]}
+
+
+def dyn_points(model, P, dtype, device, seed=0):
+    """P stage points of ``model``: moving, sliding and steering, on the track."""
+    import torch
+    gen = torch.Generator(device='cpu').manual_seed(seed)
+    q = 0.3 * (2 * torch.rand(P, model.n_q, generator=gen, dtype=torch.float64) - 1)
+    u = 0.3 * (2 * torch.rand(P, model.n_u, generator=gen, dtype=torch.float64) - 1)
+    vx, s = (2, 6) if model.n_q == 8 else (0, 6)
+    q[:, vx] += 1.5
+    q[:, s] = model.track.track_length * torch.rand(P, generator=gen, dtype=torch.float64)
+    if model.n_u == 3:
+        u[:, 2] += 1.5
+    return q.to(device, dtype), u.to(device, dtype)
+
+
+def dyn_step_work(model):
+    """Arithmetic operations of one step at one point: the elements written by the
+    pointwise operations of the model's own ``fd_plain`` (its fc evaluations and rk
+    updates, an elementary function counted as one), counted on the CPU."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if torch.Tag.pointwise in func.tags:
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                Count.n += sum(o.numel() for o in outs if isinstance(o, torch.Tensor))
+            return out
+    q, u = dyn_points(model, 1, torch.float64, 'cpu')
+    with Count():
+        model.fd_plain(q, u)
+    return Count.n
+
+
+def dyn_bound(P, nq, nu, order, ops, dtype):
+    """Least time for ``dyn_step``'s work: the points read and the outputs written once,
+    and the step's ``ops`` operations a point (``dyn_step_work``) on the value and, by
+    order, the L first and L (L + 1) / 2 distinct second derivatives of each, one
+    operation per component."""
+    it = 4 if dtype == 'float32' else 8
+    L = nq + nu
+    comps = 1 + (L if order >= 1 else 0) + (L * (L + 1) // 2 if order == 2 else 0)
+    outs = 1 + (L if order >= 1 else 0) + (L * L if order == 2 else 0)
+    nbytes = P * (L + nq * outs) * it
+    flops = P * ops * comps
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+def dyn_step_rows(dtype, device, time_it=True):
+    """``dyn_step.cu`` against its plain version (``dyn_step_plain``, the same dtype on
+    the card) at the paths' stage points: one stage of the 64 games' two cars (P = 128,
+    the rollout's calls) and all 15 stages at once (P = 1920, ``evaluate_dp``'s call),
+    orders 0, 1 and 2; each output's error relative to its largest entry."""
+    import torch
+    from dgsqp_torch.ops.dynamics import dyn_step, dyn_step_plain
+    dname = str(dtype).split('.')[-1]
+    rows = []
+    for name, model in dyn_models().items():
+        work = dyn_step_work(model)
+        for P in (2 * DYN_GAMES, 2 * DYN_GAMES * DYN_N):
+            q, u = dyn_points(model, P, dtype, device)
+            ref = dyn_step_plain(model, q, u, 2)
+            for order in (0, 1, 2):
+                out = dyn_step(model, q, u, order)
+                torch.cuda.synchronize()
+                errs = [rel_err(o.double(), r.double()) for o, r in zip(out[:order + 1],
+                                                                        ref[:order + 1])]
+                err = max(errs)
+                ok = all(bool(torch.isfinite(o).all()) for o in out[:order + 1])
+                if not ok or not err <= DYN_KERNEL_RTOL[dname]:
+                    raise AssertionError(f'dyn_step {name} P={P} order {order} {dname}: '
+                                         f'relative error {err:.3e}')
+                row = dict(kernel='dyn_step', model=name, dtype=dname, B=P, n=model.n_q,
+                           k=order, rel_err=err, rel_err_f_J_H=errs,
+                           max_abs_err=max(float((o.double() - r.double()).abs().max())
+                                           for o, r in zip(out[:order + 1], ref[:order + 1])),
+                           tol=DYN_KERNEL_RTOL[dname])
+                if time_it:
+                    kern = lambda: dyn_step(model, q, u, order)
+                    row['ms'] = graph_ms(kern)
+                    row['eager_ms'] = time_ms(kern, 20)
+                    row['plain_ms'] = time_ms(lambda: dyn_step_plain(model, q, u, order), 2)
+                    row['library_ms'] = None
+                    row['step_ops'] = work
+                    row['bound_ms'], row['bound_by'] = dyn_bound(P, model.n_q, model.n_u,
+                                                                 order, work, dname)
+                rows.append(row)
+    return rows
 
 
 def _eval_and_step(sol, u0, l0, x0, up):
@@ -756,27 +919,32 @@ def phase_merge_path(device='cuda'):
 
 
 MERGE_CHILD = '--merge-path'
+DYNAMIC_CHILD = '--dynamic-paths'
 
 
-def start_merge_path():
-    """Start ``merge_path`` in a process of its own, beside the phases that follow: the
-    paths are host-bound (one CPU core each, the card idle most of the time), so the
-    merge's study runs on another core.  The child counts its own launches."""
+def start_child(flag):
+    """Start a path (``merge_path``; ``dynamic_path`` then ``f1_path``) in a process of
+    its own, beside the phases that follow: the paths are host-bound (one CPU core each,
+    the card idle most of the time), so each runs on another core.  The child counts its
+    own launches."""
     here = Path(__file__).resolve()
-    return subprocess.Popen([sys.executable, str(here), MERGE_CHILD], cwd=here.parent,
+    return subprocess.Popen([sys.executable, str(here), flag], cwd=here.parent,
                             stdout=subprocess.PIPE, text=True)
 
 
-def finish_merge_path(proc, timeout=900):
-    """Wait for the ``merge_path`` process, emit its line here, fail if it failed."""
+def finish_child(proc, phases, timeout=900):
+    """Wait for a child, emit its phases' lines here, fail if it failed; returns each
+    phase's launches."""
     out, _ = proc.communicate(timeout=timeout)
-    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith('{')]
-    line = next((ln for ln in lines if ln.get('phase') == 'merge_path'), None)
-    if line is not None:
-        emit(line)
-    if proc.returncode != 0 or line is None:
-        raise AssertionError(f'merge_path failed in its process (exit code {proc.returncode})')
-    return line['launches']
+    lines = {ln['phase']: ln for ln in (json.loads(x) for x in out.splitlines()
+                                        if x.startswith('{')) if 'phase' in ln}
+    for phase in phases:
+        if phase in lines:
+            emit(lines[phase])
+    if proc.returncode != 0 or any(p not in lines for p in phases):
+        raise AssertionError(f'{" and ".join(phases)} failed in its process '
+                             f'(exit code {proc.returncode})')
+    return {phase: lines[phase]['launches'] for phase in phases}
 
 
 def ms_and_launches(fn, reps=3):
@@ -849,15 +1017,219 @@ def phase_dp_parity(cases):
     return rows
 
 
+def dyn_launches():
+    from dgsqp_torch.ops.dynamics import dyn_step
+    return dyn_step.launches
+
+
+def reset_dyn_launches():
+    from dgsqp_torch.ops.dynamics import dyn_step
+    dyn_step.launches = 0
+    dyn_step.launches_by_order = {}
+
+
+def dynamic_solver(sc, dtype, device, hessian_mode='ad'):
+    """DGSQP v2 of the dynamic duel with the study script's parameters (its defaults,
+    and the float32 QP tolerance of the other study paths)."""
+    import torch
+    from dgsqp_torch.solvers.dgsqp_v2 import DGSQPV2
+    from dgsqp_torch.solvers.solver_types import DGSQPV2Params
+    params = DGSQPV2Params(N=sc.N, dt=sc.dt, sqp_iters=50, p_tol=1e-3, d_tol=1e-3,
+                           merit_function='stat_l1', merit_decrease_condition='armijo',
+                           nms=True, qp_tol=3e-7 if dtype == torch.float32 else 1e-8,
+                           hessian_mode=hessian_mode)
+    return DGSQPV2(sc.joint_model, sc.costs, sc.agent_constraints, sc.shared_constraints,
+                   sc.bounds, params, print_method=None, dtype=dtype, device=device)
+
+
+def dynamic_approx_solver(sc, dtype, device):
+    """``DGSQPV2FrenetApprox`` of the approximate dynamic duel with the study script's
+    approximate-game parameters."""
+    import torch
+    from dgsqp_torch.solvers.dgsqp_v2_frenet import DGSQPV2FrenetApprox
+    from dgsqp_torch.solvers.solver_types import DGSQPV2Params
+    params = DGSQPV2Params(N=sc.N, dt=sc.dt, sqp_iters=150, p_tol=1e-3, d_tol=1e-3,
+                           approximation_eval='exact', reg=1.0, reg_decay=1.0,
+                           nms_frequency=1, nms_memory_size=10,
+                           nms_initial_step_size_factor=0.0, conv_scaled_stat=True,
+                           conv_method='eigh',
+                           qp_tol=3e-7 if dtype == torch.float32 else 1e-8)
+    return DGSQPV2FrenetApprox(sc.joint_model, sc.costs, sc.agent_constraints,
+                               sc.shared_constraints, sc.bounds, params, print_method=None,
+                               dtype=dtype, device=device)
+
+
+def study_batch(sc, sol, games, sampler):
+    """A study's games in the solver's dtype and device: sampled, warm-started and with
+    the dual warm start, as ``run_mc_study`` prepares them."""
+    import torch
+    from dgsqp_torch.harness.mc_study import _dual_warm_start
+    from dgsqp_torch.harness.warm_start import seed_virtual_rate_prev
+    x0, u_ws, _, _ = sampler(sc, games, seed=0, dtype=sol.dtype, device=sol.device)
+    u_ws = torch.as_tensor(u_ws, dtype=sol.dtype, device=sol.device)
+    u0 = sol.problem.stage_to_u(u_ws)
+    x0 = torch.as_tensor(x0, dtype=sol.dtype, device=sol.device)
+    up = torch.zeros(games, sc.joint_model.n_u, dtype=sol.dtype, device=sol.device)
+    up = seed_virtual_rate_prev(up, u_ws[:, 0, :], sc.joint_model)
+    return u0, _dual_warm_start(sol, u0, x0, up), x0, up
+
+
+def phase_dynamic_parity(n_games=16):
+    """``dynamic_parity``: evaluate + QP step of the two dynamic duels on the same games,
+    the card in float32 against the CPU in float32 (the kernel against its plain
+    version) and against the CPU in float64, each quantity within ``DERIV_RTOL``
+    (``STEP_RTOL`` for the step).  The approximate duel's gradient and step are not held
+    to float64: its lag cost (weight 1000) on a float32 rollout moves q by ~2.5e-3 and
+    the step by ~0.3 of their largest entries on any device, the JAX package's float32
+    by ~5e-3 (``APPROX_F32_FREE``); they are reported."""
+    import torch
+    from dgsqp_torch.harness.dynamic_study import (sample_dynamic_duel_initial_conditions,
+                                                   sample_dynamic_pa_initial_conditions)
+    from dgsqp_torch.harness.scenarios import (build_dynamic_approximate_duel,
+                                               build_dynamic_duel)
+    out, bad = {}, []
+    names = 'Q q G g du'.split()
+    tol = lambda k: STEP_RTOL if k == 'du' else DERIV_RTOL
+    for build, make, sampler, free in ((build_dynamic_duel, dynamic_solver,
+                                        sample_dynamic_duel_initial_conditions, ()),
+                                       (build_dynamic_approximate_duel, dynamic_approx_solver,
+                                        sample_dynamic_pa_initial_conditions,
+                                        APPROX_F32_FREE)):
+        sc = build(N=DYN_N)
+        sol = make(sc, torch.float32, 'cuda')
+        batch = study_batch(sc, sol, n_games, sampler)
+        runs = {}
+        for dev, dtype in (('cuda', torch.float32), ('cpu', torch.float32),
+                           ('cpu', torch.float64)):
+            s = sol if dev == 'cuda' else make(sc, dtype, dev)
+            args = [a.detach().to(dev, dtype) for a in batch]
+            o, du = _eval_and_step(s, *args)
+            runs[(dev, dtype)] = [t.to('cpu', torch.float64) for t in (*o[:4], du)]
+        card = runs[('cuda', torch.float32)]
+        plain = {k: rel_err(a, b) for k, a, b in zip(names, card, runs[('cpu', torch.float32)])}
+        f64 = {k: rel_err(a, b) for k, a, b in zip(names, card, runs[('cpu', torch.float64)])}
+        cpu32 = {k: rel_err(a, b) for k, a, b in zip(names, runs[('cpu', torch.float32)],
+                                                      runs[('cpu', torch.float64)])}
+        emit({'phase': 'dynamic_parity', 'scenario': sc.name, 'games': n_games,
+              'rel_diff_cpu_float32': plain, 'rel_diff_cpu_float64': f64,
+              'cpu_float32_vs_float64': cpu32,
+              'tol': {'derivatives': DERIV_RTOL, 'du': STEP_RTOL},
+              'not_held_to_float64': list(free),
+              'why': 'f32 on the card vs the plain version on the CPU in f32 (every '
+                     'quantity) and in f64 (all but the approximate duel\'s q and du, '
+                     'moved by its lag cost on a f32 rollout on any device)'})
+        bad += [f'{sc.name} {k} vs cpu f32 {plain[k]:.2e} > {tol(k):.0e}' for k in names
+                if not plain[k] <= tol(k)]
+        bad += [f'{sc.name} {k} vs cpu f64 {f64[k]:.2e} > {tol(k):.0e}' for k in names
+                if k not in free and not f64[k] <= tol(k)]
+        out[sc.name] = {'cpu_float32': plain, 'cpu_float64': f64}
+    if bad:
+        raise AssertionError(f'dynamic_parity outside tolerance: {bad}')
+    return out
+
+
+def phase_dynamic_path():
+    """The exact dynamic duel's study in the record's configuration, float32."""
+    import numpy as np
+    import torch
+    from dgsqp_torch.harness.mc_study import analyze_results, run_mc_study
+    from dgsqp_torch.harness.scenarios import build_dynamic_duel
+    sc = build_dynamic_duel(N=DYN_N)
+    sol = dynamic_solver(sc, torch.float32, 'cuda')
+    reset_launches()
+    reset_dyn_launches()
+    t0 = time.time()
+    res = run_mc_study(sc, num_samples=DYN_GAMES, seed=0, solver=sol)
+    seconds = time.time() - t0
+    launches, launches_by_n = read_launches(), read_launches_by_n()
+    launches['dyn_step'] = dyn_launches()
+    stats = analyze_results(res)
+    conv_any = stats['success_rate']
+    emit({'phase': 'dynamic_path', 'scenario': sc.name, 'games': DYN_GAMES,
+          'n_dec': sol.n_dec, 'n_c': sol.n_c, 'dtype': 'float32', 'seconds': seconds,
+          'solve_s': res.wall_time_s, 'warmup_s': res.compile_time_s,
+          'status_counts': stats['status_counts'], 'conv_any': conv_any,
+          'mean_iters': stats['mean_iters'], 'max_iters': stats['max_iters'],
+          'iters_mean_all': float(np.mean(res.iters)),
+          'feas_violation_max': stats['feas_violation_max'],
+          'solves_per_s': stats['solves_per_s'],
+          'status_string': ''.join(str(int(s)) for s in res.statuses),
+          'record': DYN_RECORD, 'limit_conv_any': DYN_CONV_ANY_MIN,
+          'launches': launches, 'launches_by_n': launches_by_n})
+    problems = []
+    if sol.n_dec != 2 * 2 * DYN_N:
+        problems.append(f'the study ran at n = {sol.n_dec}')
+    if not all(np.isfinite(a).all() for a in (res.u_sol, res.stat, res.p_feas, res.comp)):
+        problems.append('non-finite results')
+    if (res.statuses == 0).any():
+        problems.append('games still running')
+    if conv_any < DYN_CONV_ANY_MIN:
+        problems.append(f'conv_abs + conv_rel {conv_any:.3f} < {DYN_CONV_ANY_MIN}')
+    missing = [(name, n) for name in launches_by_n for n in DYN_KERNEL_NS
+               if not launches_by_n[name].get(n)]
+    if missing:
+        problems.append(f'kernels not launched at these sizes: {missing}')
+    if not launches['dyn_step']:
+        problems.append('dyn_step was not launched')
+    if problems:
+        raise AssertionError('dynamic_path: ' + '; '.join(problems))
+    return launches
+
+
+def phase_f1_path():
+    """The F1 study in the r5 command's configuration, float32: the first F1 row."""
+    import numpy as np
+    import torch
+    from dgsqp_torch.harness.f1_study import f1_solver_params, run_f1_study
+    params = f1_solver_params(F1_N, sqp_iters=150, approximation_eval='exact', qp_tol=3e-7)
+    reset_launches()
+    reset_dyn_launches()
+    t0 = time.time()
+    out = run_f1_study(N=F1_N, num_samples=F1_GAMES, seed=0, params=params,
+                       dtype=torch.float32, device='cuda')
+    seconds = time.time() - t0
+    launches, launches_by_n = read_launches(), read_launches_by_n()
+    launches['dyn_step'] = dyn_launches()
+    n_dec = int(out['u_sol'].shape[1])
+    emit({'phase': 'f1_path', 'scenario': 'f1_austin', 'games': F1_GAMES, 'n_dec': n_dec,
+          'dtype': 'float32', 'seconds': seconds, 'solve_s': out['wall_time_s'],
+          'status_counts': out['status_counts'], 'converged': out['converged'],
+          'success_rate': out['success_rate'], 'mean_iters': out['mean_iters'],
+          'max_iters': out['max_iters'],
+          'status_string': ''.join(str(int(s)) for s in out['statuses']),
+          'launches': launches, 'launches_by_n': launches_by_n})
+    problems = []
+    if n_dec != 2 * 3 * F1_N:
+        problems.append(f'the study ran at n = {n_dec}')
+    if not np.isfinite(out['u_sol']).all():
+        problems.append('non-finite u_sol')
+    if out['converged'] < 1:
+        problems.append('no game converged')
+    missing = [(name, n) for name in launches_by_n for n in F1_KERNEL_NS
+               if not launches_by_n[name].get(n)]
+    if missing:
+        problems.append(f'kernels not launched at these sizes: {missing}')
+    if not launches['dyn_step']:
+        problems.append('dyn_step was not launched')
+    if problems:
+        raise AssertionError('f1_path: ' + '; '.join(problems))
+    return launches
+
+
 def kernel_summary(rows, launches_by_path):
     """The per-kernel line: numbers at the main shape (float32), all shapes beside."""
     meta = {
         'chol': dict(source='dgsqp_torch/ops/csrc/chol.cu',
                      replaces='dgsqp_tpu/ops/linalg_pallas.py:123 (chol_batch)',
-                     main=(256, 100, 0)),
+                     main=(256, 100, 0), path='v2_path'),
         'cho_solve': dict(source='dgsqp_torch/ops/csrc/cho_solve.cu',
                           replaces='dgsqp_tpu/ops/linalg_pallas.py:243 (cho_solve_batch)',
-                          main=(256, 100, 1)),
+                          main=(256, 100, 1), path='v2_path'),
+        # no Pallas kernel: XLA compiles the JAX package's step and its derivatives
+        'dyn_step': dict(source='dgsqp_torch/ops/csrc/dyn_step.cu',
+                         replaces='dgsqp_tpu/dynamics/models.py:74 (DynamicsModel.fd with '
+                                  'its jacfwd derivatives, compiled by XLA; no Pallas kernel)',
+                         main=(2 * DYN_GAMES, 8, 2), path='dynamic_path'),
     }
     out = []
     for name, m in meta.items():
@@ -865,8 +1237,9 @@ def kernel_summary(rows, launches_by_path):
                     and (r['B'], r['n'], r['k']) == m['main'])
         out.append({'name': name, 'route': 'cuda', 'source': m['source'],
                     'replaces': m['replaces'],
-                    'launches': launches_by_path['v2_path'][name],
-                    'launches_by_path': {k: v[name] for k, v in launches_by_path.items()},
+                    'launches': launches_by_path[m['path']][name],
+                    'launches_by_path': {k: v[name] for k, v in launches_by_path.items()
+                                         if name in v},
                     'max_abs_err': main['max_abs_err'], 'ms': main['ms'],
                     'plain_ms': main['plain_ms'], 'bound_ms': main['bound_ms'],
                     'bound_by': main['bound_by'], 'library_ms': main['library_ms'],
@@ -918,18 +1291,21 @@ def main():
         metric='approx_duel_solves_per_s', n_dec=APPROX_N_DEC,
         conv_abs_limit=APPROX_CONV_ABS_LIMIT, kernel_ns=APPROX_KERNEL_NS)['launches']
 
-    merge = start_merge_path()
+    children = [start_child(MERGE_CHILD), start_child(DYNAMIC_CHILD)]
     try:
         sc_or, dg, launches['oracle_path'] = phase_oracle_path()
         launches['ibr_ws'] = phase_ibr_ws(sc, batch)
         phase_algames_path(sc_or, dg)
-        launches['merge_path'] = finish_merge_path(merge)
+        launches.update(finish_child(children[0], ['merge_path']))
+        launches.update(finish_child(children[1], ['dynamic_path', 'f1_path']))
     finally:
-        if merge.poll() is None:
-            merge.kill()
-            merge.wait()
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
     phase_dp_parity({'bench': (sol.problem, tuple(a[:DP_GAMES] for a in batch)),
                      'merge': merge_dp_batch(MERGE_GAMES)})
+    phase_dynamic_parity()
 
     emit(kernel_summary(rows, launches))
     emit({'phase': 'total', 'seconds': time.time() - t_start})
@@ -937,21 +1313,24 @@ def main():
                                  'count': torch.cuda.device_count()}})
 
 
-def merge_path_process():
-    """The body of the ``merge_path`` process: its line goes to stdout (the parent
-    emits it into the log) and to a log of its own."""
+def child_process(log_name, phases):
+    """The body of a child process: its lines go to stdout (the parent emits them into
+    the log) and to a log of its own."""
     import torch
     global LOG
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    LOG = LOG.with_name('chip_smoke_merge.jsonl')
+    LOG = LOG.with_name(log_name)
     LOG.parent.mkdir(parents=True, exist_ok=True)
     LOG.write_text('')
-    phase_merge_path()
+    for phase in phases:
+        phase()
 
 
 if __name__ == '__main__':
     if sys.argv[1:] == [MERGE_CHILD]:
-        merge_path_process()
+        child_process('chip_smoke_merge.jsonl', [phase_merge_path])
+    elif sys.argv[1:] == [DYNAMIC_CHILD]:
+        child_process('chip_smoke_dynamic.jsonl', [phase_dynamic_path, phase_f1_path])
     else:
         main()

@@ -1,5 +1,5 @@
-"""Dynamics model configuration dataclasses, a jax-free copy of the part of
-``dgsqp_tpu/dynamics/model_types.py`` that the kinematic bicycles and unicycles read.
+"""Dynamics model configuration dataclasses, a jax-free copy of
+``dgsqp_tpu/dynamics/model_types.py`` for the models the port holds.
 
 Codegen-related flags (``code_gen``, ``jit``, ``opt_flag``, ``install_dir``) are kept for
 API compatibility and are inert.
@@ -36,6 +36,56 @@ class DynamicsConfig(ModelConfig):
     M: int = 10  # integration substeps for rk discretizations
     noise: bool = False
     noise_cov: Optional[np.ndarray] = None
+
+
+@dataclass
+class DynamicBicycleConfig(DynamicsConfig):
+    wheel_dist_front: float = 0.13
+    wheel_dist_rear: float = 0.13
+    wheel_dist_center_front: float = 0.1
+    wheel_dist_center_rear: float = 0.1
+    bump_dist_front: float = 0.15
+    bump_dist_rear: float = 0.15
+    bump_dist_center: float = 0.1
+    bump_dist_top: float = 0.1
+    com_height: float = 0.05
+
+    mass: float = 2.2187
+    gravity: float = 9.81
+
+    yaw_inertia: float = 0.02723
+    pitch_inertia: float = 0.03
+    roll_inertia: float = 0.03
+
+    drag_coefficient: float = 0.0
+    damping_coefficient: float = 0.0
+    rolling_resistance: float = 0.0
+    rolling_resistance_exponent: float = 0.0
+
+    tire_model: str = 'pacejka'
+    drive_wheels: str = 'all'
+
+    wheel_friction: float = 0.9
+    pacejka_b_front: float = 5.0
+    pacejka_b_rear: float = 5.0
+    pacejka_c_front: float = 2.28
+    pacejka_c_rear: float = 2.28
+    pacejka_d_front: Optional[float] = None
+    pacejka_d_rear: Optional[float] = None
+
+    linear_bf: float = 1.0
+    linear_br: float = 1.0
+
+    simple_slip: bool = False
+
+    def __post_init__(self):
+        # the Pacejka peak forces from friction and the static axle loads
+        if self.pacejka_d_front is None:
+            self.pacejka_d_front = (self.wheel_friction * self.mass * self.gravity *
+                                    self.wheel_dist_rear / (self.wheel_dist_rear + self.wheel_dist_front))
+        if self.pacejka_d_rear is None:
+            self.pacejka_d_rear = (self.wheel_friction * self.mass * self.gravity *
+                                   self.wheel_dist_front / (self.wheel_dist_rear + self.wheel_dist_front))
 
 
 @dataclass

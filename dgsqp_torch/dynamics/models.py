@@ -1,10 +1,12 @@
 """Vehicle dynamics models on tensors, ported from ``dgsqp_tpu/dynamics/models.py``.
 
 It carries the ``DynamicsModel`` base (continuous ODE, euler/rk discretisations,
-Jacobians and Hessians by ``torch.func``, the host-side marshalling hooks), the single
-integrator, the kinematic unicycles (global, Frenet and combined frames; the merge
-scenario's cars) and the kinematic bicycles (global, Frenet, velocity-input Frenet and
-combined; the racing scenarios'), and the string-keyed ``get_dynamics_model``.
+Jacobians and Hessians by ``torch.func``, the host-side marshalling hooks, a saved track
+loaded by ``config.track_name``), the single integrator, the kinematic unicycles
+(global, Frenet and combined frames; the merge scenario's cars), the kinematic bicycles
+(global, Frenet, velocity-input Frenet and combined; the racing scenarios'), the
+dynamic (Pacejka or linear tire) bicycles in the same three frames (the dynamic
+studies'), and the string-keyed ``get_dynamics_model``.
 ``fc``/``fd`` take ``q`` of shape (..., n_q) and ``u`` of shape (..., n_u) with any
 matching leading batch shape, so one definition serves a single game, an explicit batch
 and ``torch.func`` transforms alike.
@@ -16,12 +18,13 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.func import jacfwd
+from torch.func import jacfwd, jacrev
 
-from dgsqp_torch.dynamics.model_types import (DynamicsConfig, KinematicBicycleConfig,
-                                              UnicycleConfig)
+from dgsqp_torch.dynamics.model_types import (DynamicBicycleConfig, DynamicsConfig,
+                                              KinematicBicycleConfig, UnicycleConfig)
+from dgsqp_torch.ops.dynamics import fd_step
 from dgsqp_torch.types import VehiclePrediction, VehicleState
-from dgsqp_torch.utils.math import hard_abs, smooth_sign
+from dgsqp_torch.utils.math import resistance
 
 
 class DynamicsModel:
@@ -32,12 +35,13 @@ class DynamicsModel:
     curvature_model: bool = False
 
     def __init__(self, t0: float, config: DynamicsConfig, track=None):
-        if config.track_name is not None:
-            raise NotImplementedError('loading saved tracks by name is not ported')
         if config.noise:
             raise NotImplementedError('process noise is not ported')
         self.t0 = t0
         self.model_config = config
+        if config.track_name is not None:
+            from dgsqp_torch.tracks.track_lib import get_track
+            track = get_track(config.track_name)
         self.track = track
         self.dt = config.dt
         self.M = config.M
@@ -49,6 +53,11 @@ class DynamicsModel:
 
     def fd(self, q, u, dt: Optional[float] = None):
         """One discrete step with the configured integrator."""
+        return self.fd_plain(q, u, dt)
+
+    def fd_plain(self, q, u, dt: Optional[float] = None):
+        """``fd`` written in tensor operations (the dynamic bicycles' kernel's plain
+        version)."""
         dt = self.dt if dt is None else dt
         method = self.model_config.discretization_method
         if method == 'euler':
@@ -280,10 +289,7 @@ class _KinematicBicycleBase(DynamicsModel):
 
     def f_ext(self, v, psidot):
         """Drag / damping / rolling-resistance / slip force."""
-        return (-self.c_da * v
-                - self.c_dr * v * hard_abs(v)
-                - self.c_r * hard_abs(v) ** self.p_r * smooth_sign(v)
-                - self.c_s * psidot ** 2)
+        return resistance(v, self.c_da, self.c_dr, self.c_r, self.p_r) - self.c_s * psidot ** 2
 
 
 class KinematicBicycle(_KinematicBicycleBase):
@@ -419,13 +425,205 @@ class KinematicBicycleCombined(_KinematicBicycleBase):
         return [('x', 0), ('y', 1), ('v_long', 2), ('e_psi', 3), ('s', 4), ('x_tran', 5)]
 
 
-_DYNAMIC_BICYCLES = ('dynamic_bicycle', 'dynamic_bicycle_cl', 'dynamic_bicycle_combined')
+class _DynamicBicycleBase(DynamicsModel):
+    def __init__(self, t0, config: DynamicBicycleConfig = None, track=None):
+        config = config or DynamicBicycleConfig()
+        if config.tire_model not in ('pacejka', 'linear'):
+            raise ValueError("Tire model must be 'linear' or 'pacejka'")
+        if config.drive_wheels not in ('all', 'rear'):
+            raise ValueError("drive_wheels must be 'all' or 'rear'")
+        super().__init__(t0, config, track)
+        self.L_f = config.wheel_dist_front
+        self.L_r = config.wheel_dist_rear
+        self.m = config.mass
+        self.I_z = config.yaw_inertia
+        self.g = config.gravity
+        self.c_dr = config.drag_coefficient
+        self.c_da = config.damping_coefficient
+        self.c_r = config.rolling_resistance
+        self.p_r = config.rolling_resistance_exponent
+        self.mu = config.wheel_friction
+        self.tire_model = config.tire_model
+        self.drive_wheels = config.drive_wheels
+        self.pacejka_Bf = config.pacejka_b_front
+        self.pacejka_Br = config.pacejka_b_rear
+        self.pacejka_Cf = config.pacejka_c_front
+        self.pacejka_Cr = config.pacejka_c_rear
+        self.pacejka_Df = config.pacejka_d_front
+        self.pacejka_Dr = config.pacejka_d_rear
+        self.linear_Bf = config.linear_bf
+        self.linear_Br = config.linear_br
+        self.simple_slip = config.simple_slip
+
+    def fd(self, q, u, dt: Optional[float] = None):
+        """One discrete step at the model's own ``dt``, the step and its derivatives one
+        operation (``dgsqp_torch.ops.dynamics.fd_step``): ``csrc/dyn_step.cu`` on the
+        card, which raises for a model or track it does not have, and ``fd_plain`` under
+        ``torch.func`` on the CPU."""
+        if dt is not None and dt != self.dt:
+            raise ValueError(f'{type(self).__name__}.fd steps only at its own dt '
+                             f'{self.dt}, not {dt}')
+        return fd_step(self, q, u)
+
+    # the fused step's second derivatives reach a forward pass only through its reverse
+    # rule (see dgsqp_torch.ops.dynamics), so the Hessians are taken forward-over-reverse
+    def fEd(self, q, u):
+        return jacfwd(jacrev(self.fd, argnums=0), argnums=0)(q, u)
+
+    def fFd(self, q, u):
+        return jacfwd(jacrev(self.fd, argnums=1), argnums=1)(q, u)
+
+    def fGd(self, q, u):
+        return jacfwd(jacrev(self.fd, argnums=1), argnums=0)(q, u)
+
+    def body_accels(self, vx, vy, psidot, u_a, u_s):
+        """Slip angles, tire forces and the body-frame accelerations (ax, ay, yaw)."""
+        vyf = vy + self.L_f * psidot
+        cs, ss = torch.cos(u_s), torch.sin(u_s)
+        if self.simple_slip:
+            alpha_f = -torch.atan2(vyf, vx) + u_s
+        else:
+            alpha_f = -torch.atan2(vyf * cs - vx * ss, vx * cs + vyf * ss)
+        alpha_r = -torch.atan2(vy - self.L_r * psidot, vx)
+
+        if self.tire_model == 'pacejka':
+            fyf = self.pacejka_Df * torch.sin(self.pacejka_Cf * torch.atan(self.pacejka_Bf * alpha_f))
+            fyr = self.pacejka_Dr * torch.sin(self.pacejka_Cr * torch.atan(self.pacejka_Br * alpha_r))
+        else:
+            fyf = self.linear_Bf * self.m * self.g * self.L_r / (self.L_f + self.L_r) * alpha_f
+            fyr = self.linear_Br * self.m * self.g * self.L_f / (self.L_f + self.L_r) * alpha_r
+
+        F_ext = resistance(vx, self.c_da, self.c_dr, self.c_r, self.p_r)
+        if self.drive_wheels == 'all':
+            ar = af = u_a / 2
+            ax = ar + af * cs + (F_ext - fyf * ss) / self.m
+            ay = af * ss + (fyf * cs + fyr) / self.m
+        else:
+            # rear drive: the front wheels' share af = 0 drops out of both sums
+            ax = u_a + (F_ext - fyf * ss) / self.m
+            ay = (fyf * cs + fyr) / self.m
+        alphaz = (self.L_f * fyf * cs - self.L_r * fyr) / self.I_z
+        return ax, ay, alphaz
+
+
+class DynamicBicycle(_DynamicBicycleBase):
+    """Global-frame dynamic bicycle: q=[vx, vy, psidot, x, y, psi], u=[a, steer]."""
+
+    n_q, n_u = 6, 2
+
+    def fc(self, q, u):
+        vx, vy, psidot, x, y, psi = q.unbind(-1)
+        u_a, u_s = u.unbind(-1)
+        ax, ay, alphaz = self.body_accels(vx, vy, psidot, u_a, u_s)
+        cp, sp = torch.cos(psi), torch.sin(psi)
+        return torch.stack([ax + psidot * vy,
+                            ay - psidot * vx,
+                            alphaz,
+                            vx * cp - vy * sp,
+                            vy * cp + vx * sp,
+                            psidot], dim=-1)
+
+    def state2qu(self, state):
+        return (np.array([state.v.v_long, state.v.v_tran, state.w.w_psi,
+                          state.x.x, state.x.y, state.e.psi]),
+                np.array([state.u.u_a, state.u.u_steer]))
+
+    def qu2state(self, state, q=None, u=None):
+        if q is not None:
+            state.v.v_long, state.v.v_tran, state.w.w_psi = float(q[0]), float(q[1]), float(q[2])
+            state.x.x, state.x.y, state.e.psi = float(q[3]), float(q[4]), float(q[5])
+        if u is not None:
+            state.u.u_a, state.u.u_steer = float(u[0]), float(u[1])
+
+    def _pred_q_fields(self):
+        return [('v_long', 0), ('v_tran', 1), ('psidot', 2), ('x', 3), ('y', 4), ('psi', 5)]
+
+
+class DynamicCLBicycle(_DynamicBicycleBase):
+    """Frenet-frame dynamic bicycle: q=[vx, vy, psidot, epsi, s, xtran], u=[a, steer]."""
+
+    n_q, n_u = 6, 2
+    curvature_model = True
+
+    def fc(self, q, u):
+        vx, vy, psidot, epsi, s, xtran = q.unbind(-1)
+        u_a, u_s = u.unbind(-1)
+        ax, ay, alphaz = self.body_accels(vx, vy, psidot, u_a, u_s)
+        c = self.track.curvature(s)
+        ce, se = torch.cos(epsi), torch.sin(epsi)
+        ds = (vx * ce - vy * se) / (1 - xtran * c)
+        return torch.stack([ax + psidot * vy,
+                            ay - psidot * vx,
+                            alphaz,
+                            psidot - c * ds,
+                            ds,
+                            vx * se + vy * ce], dim=-1)
+
+    def state2qu(self, state):
+        return (np.array([state.v.v_long, state.v.v_tran, state.w.w_psi,
+                          state.p.e_psi, state.p.s, state.p.x_tran]),
+                np.array([state.u.u_a, state.u.u_steer]))
+
+    def qu2state(self, state, q=None, u=None):
+        if q is not None:
+            state.v.v_long, state.v.v_tran, state.w.w_psi = float(q[0]), float(q[1]), float(q[2])
+            state.p.e_psi, state.p.s, state.p.x_tran = float(q[3]), float(q[4]), float(q[5])
+        if u is not None:
+            state.u.u_a, state.u.u_steer = float(u[0]), float(u[1])
+
+    def _pred_q_fields(self):
+        return [('v_long', 0), ('v_tran', 1), ('psidot', 2), ('e_psi', 3), ('s', 4), ('x_tran', 5)]
+
+
+class DynamicBicycleCombined(_DynamicBicycleBase):
+    """Global + Frenet dynamic bicycle: q=[x, y, vx, vy, psidot, epsi, s, xtran],
+    u=[a, steer]."""
+
+    n_q, n_u = 8, 2
+    curvature_model = True
+
+    def fc(self, q, u):
+        x, y, vx, vy, psidot, epsi, s, xtran = q.unbind(-1)
+        u_a, u_s = u.unbind(-1)
+        ax, ay, alphaz = self.body_accels(vx, vy, psidot, u_a, u_s)
+        c = self.track.curvature(s)
+        psi_t = self.track.tangent_angle(s)
+        ce, se = torch.cos(epsi), torch.sin(epsi)
+        cg, sg = torch.cos(epsi + psi_t), torch.sin(epsi + psi_t)
+        ds = (vx * ce - vy * se) / (1 - xtran * c)
+        return torch.stack([vx * cg - vy * sg,
+                            vy * cg + vx * sg,
+                            ax + psidot * vy,
+                            ay - psidot * vx,
+                            alphaz,
+                            psidot - c * ds,
+                            ds,
+                            vx * se + vy * ce], dim=-1)
+
+    def state2qu(self, state):
+        return (np.array([state.x.x, state.x.y, state.v.v_long, state.v.v_tran,
+                          state.w.w_psi, state.p.e_psi, state.p.s, state.p.x_tran]),
+                np.array([state.u.u_a, state.u.u_steer]))
+
+    def qu2state(self, state, q=None, u=None):
+        if q is not None:
+            state.x.x, state.x.y = float(q[0]), float(q[1])
+            state.v.v_long, state.v.v_tran, state.w.w_psi = float(q[2]), float(q[3]), float(q[4])
+            state.p.e_psi, state.p.s, state.p.x_tran = float(q[5]), float(q[6]), float(q[7])
+        if u is not None:
+            state.u.u_a, state.u.u_steer = float(u[0]), float(u[1])
+
+    def _pred_q_fields(self):
+        return [('x', 0), ('y', 1), ('v_long', 2), ('v_tran', 3), ('psidot', 4),
+                ('e_psi', 5), ('s', 6), ('x_tran', 7)]
 
 
 def get_dynamics_model(name: str, t0: float, config, track=None) -> DynamicsModel:
-    """String-keyed factory.  The dynamic (Pacejka) bicycles are not ported yet (ROADMAP
-    queue 1, item 3: the dynamic-bicycle family) and raise ``NotImplementedError``."""
+    """String-keyed factory."""
     registry = {
+        'dynamic_bicycle': DynamicBicycle,
+        'dynamic_bicycle_cl': DynamicCLBicycle,
+        'dynamic_bicycle_combined': DynamicBicycleCombined,
         'kinematic_bicycle': KinematicBicycle,
         'kinematic_bicycle_cl': KinematicCLBicycle,
         'kinematic_bicycle_combined': KinematicBicycleCombined,
@@ -434,9 +632,6 @@ def get_dynamics_model(name: str, t0: float, config, track=None) -> DynamicsMode
         'kinematic_unicycle_combined': KinematicUnicycleCombined,
         'integrator': IntegratorModel,
     }
-    if name in _DYNAMIC_BICYCLES:
-        raise NotImplementedError(f'{name} is not ported yet (ROADMAP queue 1, item 3: '
-                                  'the dynamic-bicycle family)')
     if name not in registry:
         raise ValueError(f'Unknown dynamics model {name}; available: {sorted(registry)}')
     return registry[name](t0, config, track=track)

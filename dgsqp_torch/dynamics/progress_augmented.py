@@ -12,8 +12,6 @@ track splines (centre line, inner and outer boundary, x and y each) share one kn
 vector, so one interval search serves all of them (``TrackSplines.frame``).  (The JAX
 package wraps s a second time inside its tangent; re-wrapping an s already in [0, L)
 can move it by an ulp of L, far inside every tolerance of the parity tests.)
-
-Not ported yet: ``DynamicBicycleProgressAugmented`` (it waits for the dynamic bicycle).
 """
 from __future__ import annotations
 
@@ -21,8 +19,8 @@ import numpy as np
 import torch
 from torch.func import jvp, vmap
 
-from dgsqp_torch.dynamics.model_types import KinematicBicycleConfig
-from dgsqp_torch.dynamics.models import _KinematicBicycleBase
+from dgsqp_torch.dynamics.model_types import DynamicBicycleConfig, KinematicBicycleConfig
+from dgsqp_torch.dynamics.models import _DynamicBicycleBase, _KinematicBicycleBase
 from dgsqp_torch.tracks.base import jnp_mod
 from dgsqp_torch.tracks.bspline import BSplineTrack, _Spline1D, _SplineSet
 
@@ -216,3 +214,45 @@ class KinematicBicycleProgressAugmented(_KinematicBicycleBase, _ProgressAugmente
 
     def _pred_q_fields(self):
         return [('x', 0), ('y', 1), ('v_long', 2), ('psi', 3), ('s', 4)]
+
+
+class DynamicBicycleProgressAugmented(_DynamicBicycleBase, _ProgressAugmentedMixin):
+    """q = [vx, vy, psidot, x, y, psi, s], u = [a, steer, u_ds]."""
+
+    n_q, n_u = 7, 3
+    pos_idx = (3, 4)
+
+    def __init__(self, t0, config: DynamicBicycleConfig = None, track=None,
+                 track_tightening: float = 0.0):
+        super().__init__(t0, config or DynamicBicycleConfig(), track)
+        self._init_splines(track_tightening)
+
+    def fc(self, q, u):
+        vx, vy, psidot, x, y, psi, s = q.unbind(-1)
+        u_a, u_s, u_ds = u.unbind(-1)
+        ax, ay, alphaz = self.body_accels(vx, vy, psidot, u_a, u_s)
+        cp, sp = torch.cos(psi), torch.sin(psi)
+        return torch.stack([ax + psidot * vy,
+                            ay - psidot * vx,
+                            alphaz,
+                            vx * cp - vy * sp,
+                            vy * cp + vx * sp,
+                            psidot,
+                            u_ds], dim=-1)
+
+    def state2qu(self, state):
+        return (np.array([state.v.v_long, state.v.v_tran, state.w.w_psi,
+                          state.x.x, state.x.y, state.e.psi, state.p.s]),
+                np.array([state.u.u_a, state.u.u_steer, state.u.u_ds]))
+
+    def qu2state(self, state, q=None, u=None):
+        if q is not None:
+            state.v.v_long, state.v.v_tran, state.w.w_psi = float(q[0]), float(q[1]), float(q[2])
+            state.x.x, state.x.y, state.e.psi, state.p.s = \
+                float(q[3]), float(q[4]), float(q[5]), float(q[6])
+        if u is not None:
+            state.u.u_a, state.u.u_steer, state.u.u_ds = float(u[0]), float(u[1]), float(u[2])
+
+    def _pred_q_fields(self):
+        return [('v_long', 0), ('v_tran', 1), ('psidot', 2), ('x', 3), ('y', 4),
+                ('psi', 5), ('s', 6)]

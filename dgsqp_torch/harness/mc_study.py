@@ -4,10 +4,8 @@ One call samples all initial conditions, warm-starts them as one batch and solve
 whole batch in lockstep on one device.  ``analyze_results`` gives the study's statistics
 (success rate, iteration counts over converged samples, status counts).
 
-Every scenario of the JAX package's studies is sampled here but the dynamic-bicycle
-duels (their samplers raise ``NotImplementedError``; ROADMAP queue 1, item 3,
-the dynamic-bicycle family), and sharding the batch over several GPUs (``n_devices`` other
-than ``None``/1) raises ``NotImplementedError``.
+Every scenario of the JAX package's studies is sampled here; sharding the batch over
+several GPUs (``n_devices`` other than ``None``/1) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -85,9 +83,14 @@ def run_provenance(solver, seed=None, extra: Optional[dict] = None) -> dict:
 
 
 def _sample(scenario, num_samples, seed, dtype, device):
+    if scenario.name.startswith('dynamic_approx'):
+        from dgsqp_torch.harness.dynamic_study import sample_dynamic_pa_initial_conditions
+        return sample_dynamic_pa_initial_conditions(scenario, num_samples, seed=seed,
+                                                    dtype=dtype, device=device)
     if scenario.name.startswith('dynamic'):
-        raise NotImplementedError('the dynamic samplers are not ported (ROADMAP queue 1, '
-                                  'item 3: the dynamic-bicycle family)')
+        from dgsqp_torch.harness.dynamic_study import sample_dynamic_duel_initial_conditions
+        return sample_dynamic_duel_initial_conditions(scenario, num_samples, seed=seed,
+                                                      dtype=dtype, device=device)
     if scenario.name.startswith('merge'):
         return sample_merge_initial_conditions(scenario, num_samples, seed=seed,
                                                dtype=dtype, device=device)

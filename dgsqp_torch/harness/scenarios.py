@@ -1,7 +1,8 @@
 """Benchmark scenario factories, ported from ``dgsqp_tpu/harness/scenarios.py``
 (``Scenario``, ``build_racing_duel``, ``build_chicane_scenario``,
-``build_curve_scenario``, ``build_agents_scenario``, ``build_merge_scenario``,
-``build_approximate_duel``, ``build_exact_duel``, ``joint_constraints_for_algames``).
+``build_dynamic_duel``, ``build_dynamic_approximate_duel``, ``build_curve_scenario``,
+``build_agents_scenario``, ``build_merge_scenario``, ``build_approximate_duel``,
+``build_exact_duel``, ``joint_constraints_for_algames``).
 
 Costs and constraints are callables on tensors with any leading batch shape (the last
 dimension holds the state or input), so the game evaluates a group of stages in one call.
@@ -13,7 +14,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dgsqp_torch.dynamics import (KinematicBicycleCombined, KinematicBicycleConfig,
+from dgsqp_torch.dynamics import (DynamicBicycleCombined, DynamicBicycleConfig,
+                                  KinematicBicycleCombined, KinematicBicycleConfig,
                                   KinematicUnicycle, MultiAgentDynamicsModel,
                                   MultiAgentModelConfig, UnicycleConfig)
 from dgsqp_torch.tracks import ChicaneTrack, CurveTrack
@@ -177,6 +179,172 @@ def build_chicane_scenario(N: int = 25, theta_deg: float = 45.0, dt: float = 0.1
                          width=half_width * 2, slack=0.8, mirror=False)
     return build_racing_duel(track, N=N, dt=dt, half_width=half_width,
                              name=f'chicane_t{int(theta_deg)}_N{N}', **kw)
+
+
+def _barc_dynamic_config(dt: float) -> DynamicBicycleConfig:
+    """The BARC car of the dynamic studies: Pacejka tires, rk4 with 10 sub-steps."""
+    return DynamicBicycleConfig(dt=dt, model_name='dynamic_bicycle', noise=False,
+                                discretization_method='rk4', M=10, simple_slip=False,
+                                tire_model='pacejka', mass=2.2187, yaw_inertia=0.02723,
+                                wheel_friction=0.9, pacejka_b_front=5.0,
+                                pacejka_b_rear=5.0, pacejka_c_front=2.28,
+                                pacejka_c_rear=2.28)
+
+
+def _dynamic_cost_weights(cost_setting: int, ds_weight=()):
+    """(input weights, input-rate weights, competition weights) of a cost setting; the
+    approximate game appends the virtual arc-speed channel's weight ``ds_weight``."""
+    if cost_setting == 0:
+        return (1.0, 1.0) + ds_weight, (1.0, 1.0) + ds_weight, (1.0, 5.0)
+    if cost_setting == 1:
+        return (1e-1, 1e-1) + ds_weight, (1e-1, 1e-1) + ds_weight, (0.0, 1.0)
+    raise ValueError(f'unknown cost_setting {cost_setting}')
+
+
+def _linear_race_costs(s_idx, input_weight, input_rate_weight, comp_weights):
+    """Per-agent (stage, terminal) costs of the dynamic duels: quadratic input and
+    input-rate stage costs over every input channel, linear terminal progress and
+    competition ``-c0 s_own + c1 (s_other - s_own)`` (two agents)."""
+    w, wr = input_weight, input_rate_weight
+
+    def make_cost(own_s, other_s):
+        def stage(x, u, um):
+            c = 0.5 * sum(w[i] * u[..., i] ** 2 for i in range(len(w)))
+            return c + 0.5 * sum(wr[i] * (u[..., i] - um[..., i]) ** 2 for i in range(len(wr)))
+
+        def term(x):
+            return -comp_weights[0] * x[..., own_s] \
+                + comp_weights[1] * (x[..., other_s] - x[..., own_s])
+        return (stage, term)
+    return [make_cost(s_idx[0], s_idx[1]), make_cost(s_idx[1], s_idx[0])]
+
+
+def _pair_collision(N: int, xy1, xy2, obs_d: float):
+    """Shared collision avoidance ``obs_d^2 - |p1 - p2|^2 <= 0`` at stages 1..N."""
+    def obs_avoid(x, u, um):
+        dx = x[..., xy1[0]] - x[..., xy2[0]]
+        dy = x[..., xy1[1]] - x[..., xy2[1]]
+        return (obs_d ** 2 - (dx * dx + dy * dy))[..., None]
+
+    def obs_avoid_term(x):
+        dx = x[..., xy1[0]] - x[..., xy2[0]]
+        dy = x[..., xy1[1]] - x[..., xy2[1]]
+        return (obs_d ** 2 - (dx * dx + dy * dy))[..., None]
+
+    return [None] + [obs_avoid] * (N - 1) + [obs_avoid_term]
+
+
+def _rate_rows(dt: float, rates):
+    """A progress-augmented agent's input-rate rows ``|u_i - um_i| <= dt rate_i`` over
+    its three channels, two rows a channel."""
+    def rate_constr(x, u, um):
+        du = u - um
+        rows = []
+        for i, r in enumerate(rates):
+            rows += [du[..., i] - dt * r, -dt * r - du[..., i]]
+        return torch.stack(rows, dim=-1)
+    return rate_constr
+
+
+def _pa_bound(sign, u_a_max, u_steer_max, u_ds_max):
+    """An unbounded progress-augmented state with the input box (u_ds >= 0)."""
+    return VehicleState(
+        x=Position(x=sign * np.inf, y=sign * np.inf),
+        p=ParametricPose(s=sign * np.inf, x_tran=sign * np.inf, e_psi=sign * np.inf),
+        e=OrientationEuler(psi=sign * np.inf),
+        v=BodyLinearVelocity(v_long=sign * np.inf, v_tran=sign * np.inf),
+        w=BodyAngularVelocity(w_psi=sign * np.inf),
+        u=VehicleActuation(u_a=sign * u_a_max, u_steer=sign * u_steer_max,
+                           u_ds=u_ds_max if sign > 0 else 0.0))
+
+
+def build_dynamic_duel(N: int = 25, dt: float = 0.1, cost_setting: int = 0,
+                       track_name: str = 'L_track_barc',
+                       car_r: float = 0.23) -> Scenario:
+    """Two dynamic-bicycle (Pacejka) agents in the exact game on ``L_track_barc``: the
+    BARC car (rk4, 10 sub-steps), quadratic input and input-rate stage costs, linear
+    terminal progress and competition, no per-agent constraints, shared collision
+    avoidance at stages 1..N.  Bounds |u_a| <= 2.1, |u_steer| <= 0.436, |x_tran| <=
+    the track's half-width."""
+    from dgsqp_torch.tracks.track_lib import get_track
+    track = get_track(track_name)
+    H = float(track.half_width)
+    input_weight, input_rate_weight, comp_weights = _dynamic_cost_weights(cost_setting)
+
+    cfg = _barc_dynamic_config(dt)
+    car1 = DynamicBicycleCombined(0.0, cfg, track=track)
+    car2 = DynamicBicycleCombined(0.0, DynamicBicycleConfig(**{**cfg.__dict__}), track=track)
+    joint = MultiAgentDynamicsModel(0.0, [car1, car2], MultiAgentModelConfig(dt=dt))
+
+    # joint-state indices (8 states per car: x y vx vy psidot epsi s xtran)
+    obs_d = 2 * car_r
+    costs = _linear_race_costs((6, 14), input_weight, input_rate_weight, comp_weights)
+    shared_constraints = _pair_collision(N, (0, 1), (8, 9), obs_d)
+    agent_constraints = [[None] * (N + 1), [None] * (N + 1)]
+
+    u_a_max, u_steer_max = 2.1, 0.436
+    ub = _vehicle_bound(H, u_a_max, u_steer_max)
+    lb = _neg(ub)
+    bounds = {'ub': [ub, ub.copy()], 'lb': [lb, lb.copy()]}
+
+    return Scenario(name=f'dynamic_duel_N{N}_c{cost_setting}', track=track,
+                    joint_model=joint, costs=costs, agent_constraints=agent_constraints,
+                    shared_constraints=shared_constraints, bounds=bounds, N=N, dt=dt,
+                    obs_d=obs_d, half_width=H,
+                    input_ub=np.array([u_a_max, u_steer_max]),
+                    input_lb=np.array([-u_a_max, -u_steer_max]),
+                    input_rate_ub=np.array([10.0, 4.5]),
+                    input_rate_lb=np.array([-10.0, -4.5]))
+
+
+def build_dynamic_approximate_duel(N: int = 25, dt: float = 0.1, cost_setting: int = 0,
+                                   track_name: str = 'L_track_barc',
+                                   car_r: float = 0.23,
+                                   rate_constraints: bool = True) -> Scenario:
+    """The approximate (MPCC) counterpart of :func:`build_dynamic_duel`: two
+    progress-augmented dynamic bicycles on ``L_track_barc`` with quadratic input and
+    input-rate stage costs (the virtual arc-speed channel at weight 1e-4), linear
+    terminal progress and competition on the progress states and shared collision
+    avoidance on the global positions; ``DGSQPV2FrenetApprox`` adds the contouring/lag
+    costs and the track-boundary rows.  ``rate_constraints=True`` adds the input-rate
+    rows as a per-stage trust region; ``False`` is the reference study's configuration
+    (it builds them but passes none)."""
+    from dgsqp_torch.dynamics.progress_augmented import DynamicBicycleProgressAugmented
+    from dgsqp_torch.tracks.track_lib import get_track
+    track = get_track(track_name)
+    H = float(track.half_width)
+    input_weight, input_rate_weight, comp_weights = _dynamic_cost_weights(cost_setting,
+                                                                          (1e-4,))
+
+    cfg = _barc_dynamic_config(dt)
+    car1 = DynamicBicycleProgressAugmented(0.0, cfg, track=track)
+    car2 = DynamicBicycleProgressAugmented(
+        0.0, DynamicBicycleConfig(**{**cfg.__dict__}), track=track)
+    joint = MultiAgentDynamicsModel(0.0, [car1, car2], MultiAgentModelConfig(dt=dt))
+
+    # per-car PA layout [vx, vy, psidot, x, y, psi, s]
+    obs_d = 2 * car_r
+    costs = _linear_race_costs((6, 13), input_weight, input_rate_weight, comp_weights)
+    shared_constraints = _pair_collision(N, (3, 4), (10, 11), obs_d)
+
+    rates = (10.0, 4.5, 5.0)
+    if rate_constraints:
+        rate_constr = _rate_rows(dt, rates)
+        agent_constraints = [[rate_constr] * N + [None], [rate_constr] * N + [None]]
+    else:
+        agent_constraints = [[None] * (N + 1), [None] * (N + 1)]
+
+    u_a_max, u_steer_max, u_ds_max = 2.1, 0.436, 4.0
+    bounds = {'ub': [_pa_bound(1, u_a_max, u_steer_max, u_ds_max)] * 2,
+              'lb': [_pa_bound(-1, u_a_max, u_steer_max, u_ds_max)] * 2}
+
+    return Scenario(name=f'dynamic_approx_duel_N{N}_c{cost_setting}', track=track,
+                    joint_model=joint, costs=costs, agent_constraints=agent_constraints,
+                    shared_constraints=shared_constraints, bounds=bounds, N=N, dt=dt,
+                    obs_d=obs_d, half_width=H,
+                    input_ub=np.array([u_a_max, u_steer_max, u_ds_max]),
+                    input_lb=np.array([-u_a_max, -u_steer_max, 0.0]),
+                    input_rate_ub=np.array(rates), input_rate_lb=-np.array(rates))
 
 
 def build_curve_scenario(N: int = 25, theta_deg: float = 90.0, dt: float = 0.1,
@@ -415,64 +583,17 @@ def build_approximate_duel(track=None, N: int = 25, dt: float = 0.1,
     joint = MultiAgentDynamicsModel(0.0, [car1, car2], MultiAgentModelConfig(dt=dt))
 
     # joint indices: agent blocks of 5 states [x, y, v, psi, s]
-    S1, S2 = 4, 9
-    XY1, XY2 = (0, 1), (5, 6)
     obs_d = 2 * agent_r
-
-    def make_cost(own_s, other_s):
-        w, wr = input_weight, input_rate_weight
-
-        def stage(x, u, um):
-            return 0.5 * (w[0] * u[..., 0] ** 2 + w[1] * u[..., 1] ** 2
-                          + w[2] * u[..., 2] ** 2) \
-                + 0.5 * (wr[0] * (u[..., 0] - um[..., 0]) ** 2
-                         + wr[1] * (u[..., 1] - um[..., 1]) ** 2
-                         + wr[2] * (u[..., 2] - um[..., 2]) ** 2)
-
-        def term(x):
-            return -comp_weights[0] * x[..., own_s] \
-                + comp_weights[1] * (x[..., other_s] - x[..., own_s])
-        return (stage, term)
-
-    costs = [make_cost(S1, S2), make_cost(S2, S1)]
-
-    def obs_avoid(x, u, um):
-        dx = x[..., XY1[0]] - x[..., XY2[0]]
-        dy = x[..., XY1[1]] - x[..., XY2[1]]
-        return (obs_d ** 2 - (dx * dx + dy * dy))[..., None]
-
-    def obs_avoid_term(x):
-        dx = x[..., XY1[0]] - x[..., XY2[0]]
-        dy = x[..., XY1[1]] - x[..., XY2[1]]
-        return (obs_d ** 2 - (dx * dx + dy * dy))[..., None]
-
-    shared_constraints = [None] + [obs_avoid] * (N - 1) + [obs_avoid_term]
-
-    def rate_constr(x, u, um):
-        du = u - um
-        return torch.stack([du[..., 0] - dt * u_a_rate,
-                            -dt * u_a_rate - du[..., 0],
-                            du[..., 1] - dt * u_steer_rate,
-                            -dt * u_steer_rate - du[..., 1],
-                            du[..., 2] - dt * u_ds_rate,
-                            -dt * u_ds_rate - du[..., 2]], dim=-1)
-
+    costs = _linear_race_costs((4, 9), input_weight, input_rate_weight, comp_weights)
+    shared_constraints = _pair_collision(N, (0, 1), (5, 6), obs_d)
+    rates = (u_a_rate, u_steer_rate, u_ds_rate)
     if rate_constraints:
+        rate_constr = _rate_rows(dt, rates)
         agent_constraints = [[rate_constr] * N + [None], [rate_constr] * N + [None]]
     else:
         agent_constraints = [[None] * (N + 1), [None] * (N + 1)]
-
-    def bound(sign):
-        return VehicleState(
-            x=Position(x=sign * np.inf, y=sign * np.inf),
-            p=ParametricPose(s=sign * np.inf, x_tran=sign * np.inf, e_psi=sign * np.inf),
-            e=OrientationEuler(psi=sign * np.inf),
-            v=BodyLinearVelocity(v_long=sign * np.inf, v_tran=sign * np.inf),
-            w=BodyAngularVelocity(w_psi=sign * np.inf),
-            u=VehicleActuation(u_a=sign * u_a_max, u_steer=sign * u_steer_max,
-                               u_ds=u_ds_max if sign > 0 else 0.0))
-
-    bounds = {'ub': [bound(1), bound(1)], 'lb': [bound(-1), bound(-1)]}
+    bounds = {'ub': [_pa_bound(1, u_a_max, u_steer_max, u_ds_max)] * 2,
+              'lb': [_pa_bound(-1, u_a_max, u_steer_max, u_ds_max)] * 2}
 
     return Scenario(name=name, track=track, joint_model=joint, costs=costs,
                     agent_constraints=agent_constraints,
@@ -480,8 +601,8 @@ def build_approximate_duel(track=None, N: int = 25, dt: float = 0.1,
                     obs_d=obs_d, half_width=half_width,
                     input_ub=np.array([u_a_max, u_steer_max, u_ds_max]),
                     input_lb=np.array([-u_a_max, -u_steer_max, 0.0]),
-                    input_rate_ub=np.array([u_a_rate, u_steer_rate, u_ds_rate]),
-                    input_rate_lb=np.array([-u_a_rate, -u_steer_rate, -u_ds_rate]))
+                    input_rate_ub=np.array(rates),
+                    input_rate_lb=-np.array(rates))
 
 
 def build_exact_duel(track=None, N: int = 25, dt: float = 0.1,

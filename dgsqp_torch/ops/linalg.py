@@ -39,7 +39,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
-SOURCES = {'chol': _CSRC / 'chol.cu', 'cho_solve': _CSRC / 'cho_solve.cu'}
+SOURCES = {'chol': _CSRC / 'chol.cu', 'cho_solve': _CSRC / 'cho_solve.cu',
+           'dyn_step': _CSRC / 'dyn_step.cu'}
 _HEADERS = [_CSRC / 'common.cuh']
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
@@ -102,6 +103,11 @@ def _load(name: str):
         if name == 'chol':
             argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
             fns = (lib.dgsqp_chol_f32, lib.dgsqp_chol_f64)
+        elif name == 'dyn_step':
+            cd = ctypes.c_double
+            argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, cd, cd, ctypes.POINTER(cd),
+                        ctypes.POINTER(ci), vp, vp, ci, cd, cd, ci, vp, vp, vp, ci, vp]
+            fns = (lib.dgsqp_dyn_step_f32, lib.dgsqp_dyn_step_f64)
         else:
             argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
             fns = (lib.dgsqp_cho_solve_f32, lib.dgsqp_cho_solve_f64)

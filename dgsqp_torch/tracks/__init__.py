@@ -1,2 +1,3 @@
 from dgsqp_torch.tracks.base import RadiusArclengthTrack
-from dgsqp_torch.tracks.track_lib import StraightTrack, CurveTrack, ChicaneTrack
+from dgsqp_torch.tracks.track_lib import (ChicaneTrack, CurveTrack, StraightTrack, get_track,
+                                          load_mpclab_raceline, load_tum_raceline)

@@ -24,6 +24,26 @@ def smooth_sign(x, eps: float = 1e-3):
     return x / smooth_abs(x, eps)
 
 
+def resistance(v, c_da: float, c_dr: float, c_r: float, p_r: float):
+    """The bicycles' longitudinal resistance ``-c_da v - c_dr v|v| - c_r |v|^p_r
+    smooth_sign(v)`` (damping, drag, rolling).
+
+    A term whose coefficient is zero is left out: it is identically zero, and costs
+    tensor operations in every sub-step of a rollout.  At v = 0 the rolling term's
+    derivative holds ``|v|^(p_r - 1)``: the JAX package's is NaN there even at p_r = 0,
+    so with ``c_r = 0`` the port's derivative is the zero limit where JAX's is NaN.
+    Returns the float 0.0 when every coefficient is zero.
+    """
+    f = 0.0
+    if c_da:
+        f = f - c_da * v
+    if c_dr:
+        f = f - c_dr * v * hard_abs(v)
+    if c_r:
+        f = f - c_r * hard_abs(v) ** p_r * smooth_sign(v)
+    return f
+
+
 def wrap_angle(theta):
     """Wrap an angle to (-pi, pi]."""
     return torch.where(theta < -math.pi, theta + 2 * math.pi,

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Monte-Carlo study dispatcher of the PyTorch/CUDA port (``dgsqp_torch``).
 
-The counterpart of ``scripts/monte_carlo_main.py`` for what the port holds: one argparse
-entry point dispatching {scenario} x {solver} x {formulation}; each configuration is one
-batched solve on one device.  ``--formulation approximate`` solves the kinematic duel's
+The counterpart of ``scripts/monte_carlo_main.py``: one argparse entry point
+dispatching {scenario} x {solver} x {formulation}; each configuration is one batched
+solve on one device.  ``--formulation approximate`` solves the kinematic duel's
 approximate (MPCC) game with ``DGSQPV2FrenetApprox`` (with ``--solver mcp``, the MCP
 oracle ``PATHMCPFrenetApprox``); ``--scenario duel`` is the exact formulation of the
-same game.  ``--solver mcp`` is the PATH-role oracle in its oracle configuration (the
+same game.  ``--scenario dynamic`` is the dynamic-bicycle duel on ``L_track_barc``,
+exact or (``--formulation approximate``) progress-augmented, with ``--cost_setting``.  ``--solver mcp`` is the PATH-role oracle in its oracle configuration (the
 Josephy + FB hybrid; ``DGSQP_MCP_METHOD``, ``DGSQP_MCP_ITERS`` and
 ``DGSQP_MCP_RESTARTS`` override its method, iteration budget and restarts), ``--solver
 algames`` the ALGAMES baseline; both run in float64 unless ``--dtype`` says otherwise.
@@ -24,6 +25,9 @@ Examples:
     python scripts/torch_monte_carlo_main.py --scenario chicane --solver dgsqp --ibr_ws
     python scripts/torch_monte_carlo_main.py --scenario merge --solver dgsqp \\
         --dtype float64 --n 128
+    python scripts/torch_monte_carlo_main.py --scenario dynamic --solver dgsqp_v2 --n 64 --N 15
+    python scripts/torch_monte_carlo_main.py --scenario dynamic --formulation approximate \\
+        --n 64 --N 15
 
 The output's name holds the scenario, solver, formulation, n and seed, and a part for
 each option that changes the result and is not at its default (``option_tag``); with
@@ -38,11 +42,9 @@ import argparse
 import json
 import os
 
-# choices of scripts/monte_carlo_main.py; scenarios outside PORTED_SCENARIOS exit with
-# code 2
+# choices of scripts/monte_carlo_main.py
 SCENARIOS = ['chicane', 'curve', 'merge', 'agents', 'dynamic', 'duel']
 SOLVERS = ['dgsqp', 'dgsqp_v2', 'algames', 'mcp']
-PORTED_SCENARIOS = ('chicane', 'curve', 'merge', 'agents', 'duel')
 # the oracles' default dtype: the AL penalty climbs to 1e7 and the MCP certifies a
 # 1e-3 residual of an ill-conditioned system, which float32 cannot carry
 ORACLES = ('algames', 'mcp')
@@ -96,6 +98,9 @@ def parser() -> argparse.ArgumentParser:
                     help="'duel' = the comparison-study game (exact formulation: "
                          "build_exact_duel); with --formulation approximate every "
                          "scenario but 'dynamic' solves build_approximate_duel")
+    ap.add_argument('--cost_setting', type=int, default=0, choices=[0, 1],
+                    help='dynamic scenario: 0 = input + rate + competition weights '
+                         '(1, 1, 1/5), 1 = (0.1, 0.1, 0/1)')
     ap.add_argument('--formulation', default='exact', choices=['exact', 'approximate'])
     ap.add_argument('--solver', default='dgsqp', choices=SOLVERS)
     ap.add_argument('--n', type=int, default=200, help='number of Monte-Carlo samples')
@@ -143,12 +148,19 @@ def parser() -> argparse.ArgumentParser:
 
 
 def build_scenario(args):
-    """The scenario the options name (the ported ones only)."""
+    """The scenario the options name."""
     from dgsqp_torch.harness.scenarios import (build_agents_scenario,
                                                build_approximate_duel,
                                                build_chicane_scenario,
-                                               build_curve_scenario, build_exact_duel,
+                                               build_curve_scenario,
+                                               build_dynamic_approximate_duel,
+                                               build_dynamic_duel, build_exact_duel,
                                                build_merge_scenario)
+    if args.scenario == 'dynamic' and args.formulation == 'approximate':
+        return build_dynamic_approximate_duel(N=args.N, cost_setting=args.cost_setting,
+                                              rate_constraints=not args.reference_faithful)
+    if args.scenario == 'dynamic':
+        return build_dynamic_duel(N=args.N, cost_setting=args.cost_setting)
     if args.formulation == 'approximate':
         return build_approximate_duel(N=args.N, rate_constraints=not args.reference_faithful)
     if args.scenario == 'duel':
@@ -173,12 +185,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     approx = args.formulation == 'approximate'
-    # the approximate formulation is the kinematic duel's whatever --scenario says, but
-    # the dynamic-bicycle one (not ported yet)
-    if args.scenario == 'dynamic' if approx else args.scenario not in PORTED_SCENARIOS:
-        print(f'scenario {args.scenario} ({args.formulation}) is not ported yet',
-              file=sys.stderr)
-        sys.exit(2)
 
     import torch
 

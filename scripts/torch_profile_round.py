@@ -3,8 +3,11 @@
 
 Builds the bench problem (chicane duel, N=25, batch 256, seed 0, float32, DGSQP v1 or,
 with ``--solver v2``, DGSQP v2; with ``--solver approx`` the approximate MPCC duel,
-n=150, solved by ``DGSQPV2FrenetApprox`` in its ``'exact'`` mode) with ``dgsqp_torch``
-and times, with host clocks around work that ends in a ``torch.cuda.synchronize()``:
+n=150, solved by ``DGSQPV2FrenetApprox`` in its ``'exact'`` mode), or with ``--scenario
+dynamic`` the exact dynamic duel's study (two dynamic bicycles on ``L_track_barc``,
+N=15, 64 games of the study's draw, DGSQP v2 with the study script's parameters), with
+``dgsqp_torch`` and times, with host clocks around work that ends in a
+``torch.cuda.synchronize()``:
 
 * each piece of a round at the full batch: ``evaluate`` (Q, q, G, g by
   forward-over-reverse AD), the convexified QP (Newton-Schulz + ``solve_qp``, with the
@@ -24,6 +27,7 @@ Usage (from the repository root, on the machine with the card):
 
     python3 scripts/torch_profile_round.py [--solver v1|v2|approx] [--batch 256] [--rounds 6]
     DGSQP_BENCH_HESS=dp python3 scripts/torch_profile_round.py   # rounds on evaluate_dp
+    python3 scripts/torch_profile_round.py --scenario dynamic    # N=15, 64 games, v2
 
 The rounds take their game derivatives as ``DGSQP_BENCH_HESS`` says (``ad``, the
 default, or ``dp``; ``build_bench_solver``).
@@ -42,9 +46,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument('--scenario', default='chicane', choices=['chicane', 'dynamic'],
+                    help="'dynamic': the exact dynamic duel's study, DGSQP v2 (--solver "
+                         "is not read)")
     ap.add_argument('--solver', default='v1', choices=['v1', 'v2', 'approx'])
-    ap.add_argument('--batch', type=int, default=256)
-    ap.add_argument('--horizon', type=int, default=25)
+    ap.add_argument('--batch', type=int, default=None, help='256, or 64 for dynamic')
+    ap.add_argument('--horizon', type=int, default=None, help='25, or 15 for dynamic')
     ap.add_argument('--rounds', type=int, default=6)
     ap.add_argument('--out', default=None)
     args = ap.parse_args()
@@ -58,10 +65,25 @@ def main():
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True, text=True,
                           timeout=60).stdout.strip()
+    dynamic = args.scenario == 'dynamic'
+    args.batch = args.batch or (64 if dynamic else 256)
+    args.horizon = args.horizon or (15 if dynamic else 25)
+    if dynamic:
+        # the study's solver and games, as chip_smoke.py's dynamic phases build them
+        from chip_smoke import dynamic_solver, study_batch
+        from dgsqp_torch.harness.dynamic_study import sample_dynamic_duel_initial_conditions
+        from dgsqp_torch.harness.scenarios import build_dynamic_duel
+        args.solver = 'v2'
+        sc = build_dynamic_duel(N=args.horizon)
+        sol = dynamic_solver(sc, torch.float32, 'cuda',
+                             hessian_mode=os.environ.get('DGSQP_BENCH_HESS', 'ad'))
+        u0, l0, x0, up = study_batch(sc, sol, args.batch,
+                                     sample_dynamic_duel_initial_conditions)
+    else:
+        sc, sol = build_bench_solver(horizon=args.horizon, solver_name=args.solver,
+                                     dtype=torch.float32, device='cuda')
+        u0, l0, x0, up = build_bench_batch(sc, sol, args.batch, seed=0)
     v2 = args.solver in ('v2', 'approx')
-    sc, sol = build_bench_solver(horizon=args.horizon, solver_name=args.solver,
-                                 dtype=torch.float32, device='cuda')
-    u0, l0, x0, up = build_bench_batch(sc, sol, args.batch, seed=0)
 
     def launches_of(fn):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -107,7 +129,14 @@ def main():
         'evaluate_dp_first_derivatives': lambda: sol.problem.evaluate_dp(u0, None, x0, up,
                                                                          hessian=False),
     }
-    evaluate_modes = {name: {'s': timed(fn), 'cuda_launches': launches_of(fn)}
+    from dgsqp_torch.ops.dynamics import dyn_step
+
+    def dyn_launches_of(fn):
+        n0 = dyn_step.launches
+        fn()
+        return dyn_step.launches - n0
+    evaluate_modes = {name: {'s': timed(fn), 'cuda_launches': launches_of(fn),
+                             'dyn_step_launches': dyn_launches_of(fn)}
                       for name, fn in derivs.items()}
 
     from dgsqp_torch.ops import linalg
@@ -157,7 +186,8 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
 
     result = {
-        'card': card, 'solver': args.solver, 'batch': args.batch, 'horizon': args.horizon,
+        'card': card, 'scenario': sc.name, 'solver': args.solver, 'batch': args.batch,
+        'horizon': args.horizon,
         'hessian_mode': sol.params.hessian_mode, 'pieces': pieces,
         'evaluate_modes': evaluate_modes, 'kernel_launches_per_qp': qp_launches,
         'round_s': rounds,

@@ -12,8 +12,7 @@ models' track splines are installed from the JAX package (``interop``).
   entry (at least 1);
 * the combined constraint closures declare their rows through ``probe_rows``;
 * ``scripts/torch_monte_carlo_main.py --formulation approximate --device cpu --dtype
-  float64 --n 4 --N 5`` exits 0, and ``--scenario dynamic --formulation approximate``
-  exits 2 (not ported).
+  float64 --n 4 --N 5`` exits 0.
 
 The solves in the three ``approximation_eval`` modes are in
 ``test_torch_approx_solver.py`` and ``test_torch_approx_solver_frozen.py``, one chunk of
@@ -171,7 +170,3 @@ def test_study_script_approximate_formulation(tmp_path, capsys):
     assert '"solver": "DGSQPV2FrenetApprox"' in out and '"total": 4' in out
     # float64 is off the solver's default (float32): the output's name says so
     assert list(tmp_path.glob('approx_duel_dgsqp_approximate_float64_n4_s0.pkl'))
-    with pytest.raises(SystemExit) as exc:
-        _script().main(['--scenario', 'dynamic', '--formulation', 'approximate',
-                        '--device', 'cpu'])
-    assert exc.value.code == 2

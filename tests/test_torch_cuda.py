@@ -175,3 +175,55 @@ def test_frenet_approx_mcp_on_the_card_matches_cpu_float64():
     assert torch.equal(res_d.iters.cpu(), res_c.iters) and int(res_c.iters.min()) > 0
     for f in ('u', 'l', 'res'):
         assert rel_err(getattr(res_d, f).cpu(), getattr(res_c, f)) <= 1e-6, f
+
+
+@pytest.mark.cuda
+def test_dynamic_duel_round_on_the_card_launches_the_kernels_and_matches_cpu_float64():
+    """One DGSQP v2 round of the exact dynamic duel (N = 15, 4 games of the study's
+    draw) with the study's parameters: float32 on the card, where ``dyn_step`` and both
+    linear-algebra kernels launch, against float64 on the CPU, within the parity
+    tolerances of ``chip_smoke.py``."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    from chip_smoke import (DERIV_RTOL, STEP_RTOL, dynamic_solver, rel_err,
+                            study_batch)
+    from dgsqp_torch.harness.dynamic_study import sample_dynamic_duel_initial_conditions
+    from dgsqp_torch.harness.scenarios import build_dynamic_duel
+    from dgsqp_torch.ops.dynamics import dyn_step
+    sc = build_dynamic_duel(N=15)
+    sol_d = dynamic_solver(sc, torch.float32, 'cuda')
+    sol_c = dynamic_solver(sc, torch.float64, 'cpu')
+    batch_d = study_batch(sc, sol_d, 4, sample_dynamic_duel_initial_conditions)
+    batch_c = tuple(a.to('cpu', torch.float64) for a in batch_d)
+    counts = (linalg.cholesky.launches, linalg.cho_solve.launches, dyn_step.launches)
+    c_d0 = sol_d._init_carry(*batch_d)
+    c_d = sol_d._make_body(batch_d[2], batch_d[3])(c_d0)
+    assert linalg.cholesky.launches > counts[0] and linalg.cho_solve.launches > counts[1]
+    assert dyn_step.launches > counts[2]
+    c_c = sol_c._make_body(batch_c[2], batch_c[3])(sol_c._init_carry(*batch_c))
+    for f in ('status', 'it', 'm_it', 'qp_solves'):
+        assert torch.equal(getattr(c_d, f).cpu(), getattr(c_c, f)), f
+    assert int(c_d.it.min()) == 1 and not torch.equal(c_d.u, c_d0.u)
+    for f, tol in (('p_feas', DERIV_RTOL), ('stat', DERIV_RTOL), ('u', STEP_RTOL)):
+        a, b = getattr(c_d, f).to('cpu', torch.float64), getattr(c_c, f)
+        assert rel_err(a, b) <= tol, f
+
+
+@pytest.mark.cuda
+def test_dynamic_step_without_kernel_raises_on_the_card():
+    """A Frenet dynamic bicycle on a spline track, and a subclass of a dynamic bicycle,
+    have no kernel: their step raises on the card instead of running the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    from dgsqp_torch.dynamics import DynamicBicycle, DynamicBicycleConfig, DynamicCLBicycle
+    spline = DynamicCLBicycle(0.0, DynamicBicycleConfig(
+        dt=0.1, track_name='f1_austin_tenth_scale'))
+
+    class Sub(DynamicBicycle):
+        pass
+    for m in (spline, Sub(0.0, DynamicBicycleConfig(dt=0.1))):
+        q = torch.ones(2, m.n_q, device='cuda')
+        u = torch.zeros(2, m.n_u, device='cuda')
+        with pytest.raises(ValueError, match='no kernel'):
+            m.fd(q, u)

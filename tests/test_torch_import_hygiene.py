@@ -1,5 +1,8 @@
 """The port stands alone: no module of ``dgsqp_torch`` (nor ``chip_smoke.py``, nor a
-``scripts/torch_*.py`` script) imports JAX or anything of the JAX package ``dgsqp_tpu``."""
+``scripts/torch_*.py`` script) imports JAX or anything of the JAX package ``dgsqp_tpu``,
+or names a data file under ``dgsqp_tpu/`` or a reference checkout: the saved tracks and
+racelines it loads are its own copies, and loading them opens no file of the JAX
+package."""
 import pathlib
 import re
 import subprocess
@@ -14,6 +17,10 @@ _IMPORT_TPU = re.compile(r'^\s*(from\s+dgsqp_tpu\b|import\s+dgsqp_tpu\b)'
                          r'|(import_module|__import__)\(\s*[\'"]dgsqp_tpu', re.M)
 _IMPORT_JAX = re.compile(r'^\s*(from\s+jax\b|import\s+jax\b)'
                          r'|(import_module|__import__)\(\s*[\'"]jax', re.M)
+# a line that names the JAX package beside a data file or folder, or a checkout of the
+# reference project (the JAX package's track loader also looks in one)
+_DATA_PATH = re.compile(r'dgsqp_tpu.*(track_data|[\'"/]data\b|\.npz|\.csv)'
+                        r'|reference/DGSQP', re.M)
 
 
 def _modules():
@@ -32,11 +39,13 @@ def test_importing_every_module_loads_no_jax():
     assert 'dgsqp_torch.solvers.dgsqp' in mods and 'dgsqp_torch.ops.linalg' in mods
     for new in ('solvers.dgsqp_v2', 'harness.mc_study', 'harness.analysis',
                 'solvers.dgsqp_v2_frenet', 'dynamics.progress_augmented', 'tracks.bspline',
-                'solvers.mcp', 'solvers.ibr', 'solvers.algames', 'solvers.backtrack'):
+                'solvers.mcp', 'solvers.ibr', 'solvers.algames', 'solvers.backtrack',
+                'ops.dynamics', 'harness.dynamic_study', 'harness.f1_study',
+                'tracks.track_lib'):
         assert f'dgsqp_torch.{new}' in mods
     scripts = [p.stem for p in SCRIPTS]
     assert 'torch_monte_carlo_main' in scripts and 'torch_profile_round' in scripts
-    assert 'torch_gne_compare_main' in scripts
+    assert 'torch_gne_compare_main' in scripts and 'torch_f1_study_main' in scripts
     code = ('import importlib, sys\n'
             f'for m in {mods!r}:\n'
             '    importlib.import_module(m)\n'
@@ -60,11 +69,41 @@ def test_no_source_imports_the_jax_package():
         assert not _IMPORT_JAX.search(src), path
 
 
+def test_no_source_names_a_jax_data_path():
+    for path in sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py'] + SCRIPTS:
+        hit = _DATA_PATH.search(path.read_text())
+        assert hit is None, (path, hit and hit.group(0))
+
+
+def test_loading_tracks_and_racelines_opens_only_the_ports_files():
+    """Every file opened while the saved tracks, both racelines and the dynamic and F1
+    scenarios load lies in the port's own folders."""
+    code = ('import sys\n'
+            'opened = []\n'
+            "sys.addaudithook(lambda ev, a: opened.append(str(a[0])) if ev == 'open' else None)\n"
+            'from dgsqp_torch.tracks.track_lib import get_track\n'
+            'from dgsqp_torch.harness.dynamic_study import ltrack_raceline\n'
+            'from dgsqp_torch.harness.f1_study import build_f1_scenario, f1_raceline\n'
+            'from dgsqp_torch.harness.scenarios import build_dynamic_duel\n'
+            "get_track('L_track_barc'); get_track('f1_austin_tenth_scale')\n"
+            'ltrack_raceline(); f1_raceline(); build_dynamic_duel(N=2); build_f1_scenario(N=2)\n'
+            "data = [p for p in opened if p.endswith(('.npz', '.csv'))]\n"
+            "bad = [p for p in opened if 'dgsqp_tpu' in p or 'reference/DGSQP' in p]\n"
+            'print(len(data), bad)\n'
+            'sys.exit(1 if bad or len(data) < 4 else 0)\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_new_entry_points_default_to_the_card():
     """Every entry point of the port takes ``device`` and defaults to ``'cuda'``."""
     import inspect
 
     from dgsqp_torch.harness.bench_setup import build_bench_solver
+    from dgsqp_torch.harness.dynamic_study import (sample_dynamic_duel_initial_conditions,
+                                                   sample_dynamic_pa_initial_conditions)
+    from dgsqp_torch.harness.f1_study import run_f1_study, sample_f1_initial_conditions
     from dgsqp_torch.harness.mc_study import run_mc_study
     from dgsqp_torch.harness.samplers import (sample_agents_initial_conditions,
                                               sample_duel_initial_conditions)
@@ -77,9 +116,12 @@ def test_new_entry_points_default_to_the_card():
     for fn in (build_bench_solver, run_mc_study, sample_agents_initial_conditions,
                sample_duel_initial_conditions, DGSQPV2.__init__,
                DGSQPV2FrenetApprox.__init__, run_mc_study_algames, ALGAMES.__init__,
-               IBR.__init__, PATHMCP.__init__, PATHMCPFrenetApprox.__init__):
+               IBR.__init__, PATHMCP.__init__, PATHMCPFrenetApprox.__init__,
+               sample_dynamic_duel_initial_conditions, sample_dynamic_pa_initial_conditions,
+               sample_f1_initial_conditions, run_f1_study):
         params = inspect.signature(fn).parameters
         assert params['device'].default == 'cuda', fn
         assert 'dtype' in params, fn
-    script = (ROOT / 'scripts' / 'torch_monte_carlo_main.py').read_text()
-    assert "'--device', default='cuda'" in script and "'--dtype'" in script
+    for name in ('torch_monte_carlo_main', 'torch_f1_study_main'):
+        script = (ROOT / 'scripts' / f'{name}.py').read_text()
+        assert "'--device', default='cuda'" in script and "'--dtype'" in script, name

@@ -13,8 +13,7 @@
   the study after the retries), carried across field by field.
 * ``scripts/torch_monte_carlo_main.py --device cpu`` writes its ``.pkl`` and ``.json``
   under a name that holds every option off its default, so that the option sets of
-  ``scripts/run_ablation_study.sh`` write distinct outputs; a scenario that is not
-  ported exits with code 2; multi-GPU sharding raises
+  ``scripts/run_ablation_study.sh`` write distinct outputs; multi-GPU sharding raises
   ``NotImplementedError`` (the IBR warm start and the baselines' studies are held
   against the JAX package in ``test_torch_baselines_study.py`` and
   ``test_torch_algames_study.py``).
@@ -207,15 +206,6 @@ def test_script_writes_results_on_the_cpu(tmp_path, capsys, dtype, qp_tol):
     # the QP tolerance follows the dtype, as in the bench configuration
     assert res.provenance['params']['qp_tol'] == qp_tol
     assert (res.statuses != 0).all()
-
-
-@pytest.mark.parametrize('argv', [['--scenario', 'dynamic'],
-                                  ['--scenario', 'dynamic', '--formulation', 'approximate']])
-def test_script_exits_2_for_what_is_not_ported(argv, capsys):
-    with pytest.raises(SystemExit) as exc:
-        _script().main(argv + ['--device', 'cpu'])
-    assert exc.value.code == 2
-    assert 'not' in capsys.readouterr().err
 
 
 def _ablation_option_sets():

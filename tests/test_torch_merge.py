@@ -5,7 +5,7 @@ CPU in float64.
   velocity-input Frenet) model: ``fd`` and its Jacobians and Hessians (``fAd``, ``fBd``,
   ``fEd``, ``fFd``, ``fGd``) at random points match the JAX package's to 1e-12; the
   Frenet models on the same curved track tables.  ``get_dynamics_model`` builds every
-  ported model by the JAX factory's name and raises for the dynamic bicycles.
+  model by the JAX factory's name.
 * ``sample_merge_initial_conditions`` (N=6, 4 games, seed 1) draws the JAX package's
   x0 (1e-12) and an all-zero warm start.
 * The merge game's ``evaluate`` (Q, q, G, g, x) on those games matches the JAX package's
@@ -117,9 +117,11 @@ def test_get_dynamics_model_names():
     m = tdyn.get_dynamics_model('kinematic_bicycle_combined', 0.0,
                                 tdyn.KinematicBicycleConfig())
     assert isinstance(m, tdyn.KinematicBicycleCombined)
-    for name in ('dynamic_bicycle', 'dynamic_bicycle_cl', 'dynamic_bicycle_combined'):
-        with pytest.raises(NotImplementedError, match='dynamic-bicycle'):
-            tdyn.get_dynamics_model(name, 0.0, tdyn.KinematicBicycleConfig())
+    for name, cls in (('dynamic_bicycle', tdyn.DynamicBicycle),
+                      ('dynamic_bicycle_cl', tdyn.DynamicCLBicycle),
+                      ('dynamic_bicycle_combined', tdyn.DynamicBicycleCombined)):
+        m = tdyn.get_dynamics_model(name, 0.0, tdyn.DynamicBicycleConfig())
+        assert type(m) is cls
     with pytest.raises(ValueError):
         tdyn.get_dynamics_model('no_such_model', 0.0, tdyn.DynamicsConfig())
     m = tdyn.get_dynamics_model('integrator', 0.0, tdyn.DynamicsConfig())
