@@ -84,13 +84,27 @@ Phases, each printing one line on stdout:
    printed when it ends.  Both kernels must launch at the paths' sizes (n = 60 and the
    polish's 48 rows; n = 90 and 64), and ``dyn_step`` in both.
 
+16. ``race_path``: the closed-loop two-car race (``RaceStack(RaceConfig())``:
+   ``L_track_barc`` with its recorded raceline, CA-LTV-MPC trackers and a DGSQP game
+   planner at N=20, 50 control steps, float64) in a third process (``chip_smoke.py
+   --race-path``, also runnable alone): its states over the first ``RACE_HELD_STEPS``
+   steps within ``RACE_ATOL`` of the JAX package's record
+   (``dgsqp_torch/harness/data/race_reference_f64.json``) and the same game events
+   (``held_game_log``); the cars advance and stay on the track, a game converges, no
+   more tracker QPs fail than in the record; its steps/s, ms a step by part, launches
+   (both kernels at the planner's n = 80, ``dyn_step`` at one and 20 points) and the
+   device's idle share over two profiled steps.
+
 ``kernels`` also holds ``dyn_step.cu`` (the dynamic bicycle's step with its Jacobian and
-second derivatives, all three orders) against its plain version at the paths' points.
+second derivatives, all three orders) against its plain version at the paths' points,
+and at the race's (one point at the model's and at the plant's step, 20 points at order
+1), and both linear-algebra kernels at the race's batch of one.
 
 The launch counts are set to 0 just before each path and read just after; each path
 that runs the kernels fails if one was not launched in it.  Then one JSON line of
 per-kernel numbers (``launches`` is the count of ``v2_path`` for the linear-algebra
-kernels and of ``dynamic_path`` for ``dyn_step``, ``launches_by_path`` has every path),
+kernels and of ``dynamic_path`` for ``dyn_step``, ``launches_by_path`` has every path,
+``race_path`` among them),
 and last ``{"ok": true, "device": ...}``.  Every line also goes to
 ``build/chip_smoke.jsonl`` (the kernels line alone is longer than a caller may see of
 the output's tail).
@@ -200,6 +214,20 @@ DYN_KERNEL_RTOL = {'float32': 1e-4, 'float64': 1e-10}
 # with DGSQP is checked when at least ALGAMES_MIN_BOTH games converge in both
 ALGAMES_GAMES, ALGAMES_MATCH_MIN, ALGAMES_MIN_BOTH = 8, 0.9, 4
 
+
+# the closed-loop race (RaceStack(RaceConfig()): L_track_barc with its recorded
+# raceline, mpc_N = game_N = 20, float64), held over its first RACE_HELD_STEPS control
+# steps to the JAX package's record of the same race (float64, CPU); steps
+# [RACE_PROFILED) run under the profiler for the device's idle share (and are left out
+# of the per-step times)
+RACE_RECORD = Path(__file__).resolve().parent / 'dgsqp_torch' / 'harness' / 'data' / \
+    'race_reference_f64.json'
+RACE_STEPS, RACE_HELD_STEPS, RACE_ATOL = 50, 10, 1e-6
+RACE_PROFILED = (5, 7)
+RACE_GAME_N = 20
+# the planner's QP: n = game_N * 4 inputs, its polish 56 rows; B = 1
+RACE_KERNEL_NS = (4 * RACE_GAME_N,)
+RACE_CONVERGED = ('conv_abs_tol', 'conv_rel_tol')
 
 # every emitted line also goes to this file (the output's tail is all a caller may see)
 LOG = Path(__file__).resolve().parent / 'build' / 'chip_smoke.jsonl'
@@ -333,7 +361,7 @@ def phase_kernels(device='cuda', shapes=None, time_it=True):
         'chol': [(256, 100, 0), (256, 64, 0), (5, 37, 0), (64, 150, 0),
                  (16, 36, 0), (16, 48, 0), (256, 150, 0), (256, 96, 0), (256, 50, 0),
                  (256, 48, 0), (128, 120, 0), (128, 80, 0), (64, 60, 0), (64, 48, 0),
-                 (64, 90, 0), (64, 64, 0)],
+                 (64, 90, 0), (64, 64, 0), (1, 80, 0), (1, 56, 0)],
         'cho_solve': [(256, 100, 1), (256, 100, 64), (256, 64, 1), (5, 37, 3), (256, 100, 8),
                       (256, 100, linalg.WARP_PATH_MAX_K), (256, 100, linalg.WARP_PATH_MAX_K + 1),
                       (256, 100, 33), (5, 37, 33), (64, 150, 1), (64, 150, 64),
@@ -341,7 +369,7 @@ def phase_kernels(device='cuda', shapes=None, time_it=True):
                       (256, 150, 1), (256, 150, 96), (256, 96, 1), (256, 50, 1),
                       (256, 50, 48), (256, 48, 1), (128, 120, 1), (128, 120, 80),
                       (128, 80, 1), (64, 60, 1), (64, 60, 48), (64, 48, 1), (64, 90, 1),
-                      (64, 90, 64), (64, 64, 1)]}
+                      (64, 90, 64), (64, 64, 1), (1, 80, 1), (1, 80, 56), (1, 56, 1)]}
     rows = []
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split('.')[-1]
@@ -385,6 +413,7 @@ def phase_kernels(device='cuda', shapes=None, time_it=True):
                 rows.append(row)
         rows.append(check_non_pd(dtype, device, gen))
         rows += dyn_step_rows(dtype, device, time_it)
+        rows += race_dyn_rows(dtype, device, time_it)
     from dgsqp_torch.ops.dynamics import dyn_step
     emit({'phase': 'kernels', 'kernels': ['chol', 'cho_solve', 'dyn_step'],
           'launches_in_this_phase': {'chol': linalg.cholesky.launches,
@@ -417,10 +446,11 @@ def dyn_points(model, P, dtype, device, seed=0):
     return q.to(device, dtype), u.to(device, dtype)
 
 
-def dyn_step_work(model):
+def dyn_step_work(model, **step):
     """Arithmetic operations of one step at one point: the elements written by the
     pointwise operations of the model's own ``fd_plain`` (its fc evaluations and rk
-    updates, an elementary function counted as one), counted on the CPU."""
+    updates, an elementary function counted as one), counted on the CPU; ``step``
+    overrides the step (``dt``, ``M``, ``method``) as ``dyn_step`` does."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -435,7 +465,7 @@ def dyn_step_work(model):
             return out
     q, u = dyn_points(model, 1, torch.float64, 'cpu')
     with Count():
-        model.fd_plain(q, u)
+        model.fd_plain(q, u, **step)
     return Count.n
 
 
@@ -493,6 +523,52 @@ def dyn_step_rows(dtype, device, time_it=True):
                     row['bound_ms'], row['bound_by'] = dyn_bound(P, model.n_q, model.n_u,
                                                                  order, work, dname)
                 rows.append(row)
+    return rows
+
+
+def race_dyn_rows(dtype, device, time_it=True):
+    """``dyn_step.cu`` against its plain version at the race's points: one car's step
+    (P = 1, order 0) at the model's own step (the trackers' rollout) and at the plant's
+    (``sim_dt`` 0.01 in max(8, M) rk4 sub-steps), and the linearization of one tracker's
+    horizon (P = 20, order 1)."""
+    import torch
+    from dgsqp_torch.harness.race import RaceConfig, race_car_model
+    from dgsqp_torch.ops.dynamics import dyn_step, dyn_step_plain
+    from dgsqp_torch.tracks.track_lib import get_track
+    dname = str(dtype).split('.')[-1]
+    cfg = RaceConfig()
+    model = race_car_model(get_track(cfg.track_name), cfg.control_dt)
+    plant = dict(dt=cfg.sim_dt, M=max(8, model.M), method='rk4')
+    rows = []
+    for label, P, order, step in (('rollout', 1, 0, {}), ('plant', 1, 0, plant),
+                                  ('linearization', cfg.mpc_N, 1, {})):
+        q, u = dyn_points(model, P, dtype, device, seed=1)
+        out = dyn_step(model, q, u, order, **step)
+        ref = dyn_step_plain(model, q, u, order, **step)
+        torch.cuda.synchronize()
+        errs = [rel_err(o.double(), r.double()) for o, r in zip(out[:order + 1],
+                                                                ref[:order + 1])]
+        ok = all(bool(torch.isfinite(o).all()) for o in out[:order + 1])
+        if not ok or not max(errs) <= DYN_KERNEL_RTOL[dname]:
+            raise AssertionError(f'dyn_step race {label} P={P} order {order} {dname}: '
+                                 f'relative error {max(errs):.3e}')
+        row = dict(kernel='dyn_step', model='race_' + label, dtype=dname, B=P,
+                   n=model.n_q, k=order, step={k: v for k, v in step.items()},
+                   rel_err=max(errs), rel_err_f_J_H=errs,
+                   max_abs_err=max(float((o.double() - r.double()).abs().max())
+                                   for o, r in zip(out[:order + 1], ref[:order + 1])),
+                   tol=DYN_KERNEL_RTOL[dname])
+        if time_it:
+            work = dyn_step_work(model, **step)
+            kern = lambda: dyn_step(model, q, u, order, **step)
+            row['ms'] = graph_ms(kern)
+            row['eager_ms'] = time_ms(kern, 20)
+            row['plain_ms'] = time_ms(lambda: dyn_step_plain(model, q, u, order, **step), 2)
+            row['library_ms'] = None
+            row['step_ops'] = work
+            row['bound_ms'], row['bound_by'] = dyn_bound(P, model.n_q, model.n_u, order,
+                                                         work, dname)
+        rows.append(row)
     return rows
 
 
@@ -920,6 +996,7 @@ def phase_merge_path(device='cuda'):
 
 MERGE_CHILD = '--merge-path'
 DYNAMIC_CHILD = '--dynamic-paths'
+RACE_CHILD = '--race-path'
 
 
 def start_child(flag):
@@ -1026,6 +1103,7 @@ def reset_dyn_launches():
     from dgsqp_torch.ops.dynamics import dyn_step
     dyn_step.launches = 0
     dyn_step.launches_by_order = {}
+    dyn_step.launches_by_shape = {}
 
 
 def dynamic_solver(sc, dtype, device, hessian_mode='ad'):
@@ -1216,6 +1294,160 @@ def phase_f1_path():
     return launches
 
 
+def race_record():
+    """The JAX package's record of the race (``tests/test_torch_race.py`` writes it)."""
+    return json.loads(RACE_RECORD.read_text())
+
+
+def race_state_vector(st, fields):
+    out = []
+    for name in fields:
+        obj = st
+        for part in name.split('.'):
+            obj = getattr(obj, part)
+        out.append(float(obj))
+    return out
+
+
+def held_game_log(log):
+    """The events race_path holds: every game's step, look-ahead index and message, and
+    the iteration count of a game that converged.  A game that diverges does so through
+    QPs whose duals reach ~1e13, where a 1e-13 change of the iterate moves the next step
+    by ~1e-2 (the same inputs give the same step to 1e-12): its iteration count is set by
+    rounding, not by the implementation (ROADMAP.md section 3)."""
+    return [dict(step=g['step'], idx=g['idx'], msg=g['msg'],
+                 num_iters=g['num_iters'] if g['msg'] in RACE_CONVERGED else None)
+            for g in log]
+
+
+def phase_race_path():
+    """The closed-loop race at full width on the card in float64, held to the JAX
+    package's record over its first control steps, with its timings, launch counts and
+    the device's idle share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dgsqp_torch.harness.race import RaceConfig, RaceStack
+    from dgsqp_torch.ops.dynamics import dyn_step
+    rec = race_record()
+    fields = rec['state_fields']
+    cfg = RaceConfig()
+    if cfg.n_steps != RACE_STEPS or rec['n_steps'] < RACE_STEPS or cfg.game_N != RACE_GAME_N:
+        raise AssertionError('race_path: the record or RaceConfig() is not the race held')
+    t0 = time.time()
+    stack = RaceStack(cfg, device='cuda', dtype=torch.float64)
+    setup_s = time.time() - t0
+    flags = []
+    for mpc in stack.trackers:
+        def recorded(state, parameters=None, _step=mpc.step):
+            out = _step(state, parameters)
+            flags.append(bool(out['success']))
+            return out
+        mpc.step = recorded
+    states = stack.initial_states()
+    out_states, games, step_s = [], [], []
+    prof_wall, busy_us, n_events = 0.0, 0.0, 0
+    reset_launches()
+    reset_dyn_launches()
+    t_run = time.time()
+    for k in range(RACE_STEPS):
+        n_games = len(stack.game_log)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if RACE_PROFILED[0] <= k < RACE_PROFILED[1]:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                stack.run(initial_states=states, n_steps=1)
+                torch.cuda.synchronize()
+            prof_wall += time.perf_counter() - t0
+            events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_us += sum(e.time_range.elapsed_us() for e in events)
+            n_events += len(events)
+        else:
+            stack.run(initial_states=states, n_steps=1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        out_states.append([race_state_vector(st, fields) for st in states])
+        for g in stack.game_log[n_games:]:
+            games.append(dict(step=k, idx=int(g['idx']), msg=g['info']['msg'],
+                              num_iters=int(g['info']['num_iters'])))
+    run_s = time.time() - t_run
+    launches = dict(read_launches(), dyn_step=dyn_step.launches)
+    by_n = read_launches_by_n()
+    by_shape = dict(dyn_step.launches_by_shape)
+
+    ref_states = np.asarray(rec['states'][:RACE_STEPS])
+    diff = np.abs(np.asarray(out_states) - ref_states).max(axis=(1, 2))
+    held = RACE_HELD_STEPS
+    ours, theirs = held_game_log(games), held_game_log(rec['game_log'])
+    ours_held = [g for g in ours if g['step'] < held]
+    theirs_held = [g for g in theirs if g['step'] < held]
+    first_event_diff = next((min(a['step'], b['step']) for a, b in zip(ours, theirs)
+                             if a != b), None)
+    if first_event_diff is None and len(ours) != len(theirs):
+        first_event_diff = (ours + theirs)[min(len(ours), len(theirs))]['step']
+    flags_by_step = [flags[2 * k:2 * k + 2] for k in range(RACE_STEPS)]
+    failed = sum(not f for fl in flags_by_step for f in fl)
+    failed_rec = sum(not f for fl in rec['tracker_success'][:RACE_STEPS] for f in fl)
+    s0 = [st[fields.index('p.s')] for st in out_states[0]]
+    s1 = [st[fields.index('p.s')] for st in out_states[-1]]
+    ey_max = float(np.abs(np.asarray(out_states)[:, :, fields.index('p.x_tran')]).max())
+    timed = [k for k in range(RACE_STEPS) if not RACE_PROFILED[0] <= k < RACE_PROFILED[1]]
+    game_steps = sorted({g['step'] for g in games})
+    ms = lambda v: float(np.median(v)) * 1e3
+    line = {
+        'phase': 'race_path', 'track': cfg.track_name, 'mpc_N': cfg.mpc_N,
+        'game_N': cfg.game_N, 'control_dt': cfg.control_dt, 'sim_dt': cfg.sim_dt,
+        'steps': RACE_STEPS, 'dtype': 'float64', 'setup_s': setup_s, 'run_s': run_s,
+        'steps_per_s': len(timed) / sum(step_s[k] for k in timed),
+        'ms_per_step_median': ms([step_s[k] for k in timed]),
+        'ms_trackers_median': ms([stack.timing['trackers'][k] for k in timed]),
+        'ms_plant_median': ms([stack.timing['plant'][k] for k in timed]),
+        'ms_planner_per_game_solve': [stack.timing['planner'][k] * 1e3 for k in game_steps],
+        'ms_step_all': [t * 1e3 for t in step_s],
+        'launches': launches, 'launches_by_n': by_n, 'dyn_step_launches_by_shape': by_shape,
+        'launches_per_step': {k: v / RACE_STEPS for k, v in launches.items()},
+        'profiled_steps': list(RACE_PROFILED), 'profiled_wall_s': prof_wall,
+        'device_busy_s': busy_us * 1e-6, 'device_idle_share': 1.0 - busy_us * 1e-6 / prof_wall,
+        'cuda_kernel_launches_profiled': n_events,
+        'held_steps': held, 'atol': RACE_ATOL,
+        'max_state_diff_held': float(diff[:held].max()),
+        'max_state_diff_all': float(diff.max()), 'state_diff_by_step': diff.tolist(),
+        'game_log': games, 'record_game_log': rec['game_log'],
+        'first_event_diff_step': first_event_diff,
+        'tracker_failed_qps': failed, 'record_tracker_failed_qps': failed_rec,
+        'final_s': s1, 'max_abs_x_tran': ey_max,
+        'half_width_plus_slack': stack.track.half_width + 0.3,
+    }
+    emit(line)
+    problems = []
+    if not np.isfinite(np.asarray(out_states)).all():
+        problems.append('non-finite states')
+    if not diff[:held].max() <= RACE_ATOL:
+        problems.append(f'states differ from the record by {diff[:held].max():.3e} over '
+                        f'the first {held} steps')
+    if ours_held != theirs_held:
+        problems.append(f'game log over the first {held} steps {ours_held} != record '
+                        f'{theirs_held}')
+    if not all(b > a for a, b in zip(s0, s1)):
+        problems.append(f'a car did not advance: s {s0} -> {s1}')
+    if ey_max > stack.track.half_width + 0.3:
+        problems.append(f'a car left the track: |x_tran| {ey_max:.3f}')
+    if not any(g['msg'] in RACE_CONVERGED for g in games):
+        problems.append('no intervention converged')
+    if failed > failed_rec:
+        problems.append(f'{failed} tracker QPs failed, the record {failed_rec}')
+    missing = [(name, n) for name in by_n for n in RACE_KERNEL_NS if not by_n[name].get(n)]
+    if missing:
+        problems.append(f'kernels not launched at these sizes: {missing}')
+    for key in ('order0_P1', f'order1_P{cfg.mpc_N}'):
+        if not by_shape.get(key):
+            problems.append(f'dyn_step not launched at {key}')
+    if problems:
+        raise AssertionError('race_path: ' + '; '.join(problems))
+    return launches
+
+
 def kernel_summary(rows, launches_by_path):
     """The per-kernel line: numbers at the main shape (float32), all shapes beside."""
     meta = {
@@ -1291,13 +1523,15 @@ def main():
         metric='approx_duel_solves_per_s', n_dec=APPROX_N_DEC,
         conv_abs_limit=APPROX_CONV_ABS_LIMIT, kernel_ns=APPROX_KERNEL_NS)['launches']
 
-    children = [start_child(MERGE_CHILD), start_child(DYNAMIC_CHILD)]
+    children = [start_child(MERGE_CHILD), start_child(DYNAMIC_CHILD),
+                start_child(RACE_CHILD)]
     try:
         sc_or, dg, launches['oracle_path'] = phase_oracle_path()
         launches['ibr_ws'] = phase_ibr_ws(sc, batch)
         phase_algames_path(sc_or, dg)
         launches.update(finish_child(children[0], ['merge_path']))
         launches.update(finish_child(children[1], ['dynamic_path', 'f1_path']))
+        launches.update(finish_child(children[2], ['race_path']))
     finally:
         for child in children:
             if child.poll() is None:
@@ -1332,5 +1566,7 @@ if __name__ == '__main__':
         child_process('chip_smoke_merge.jsonl', [phase_merge_path])
     elif sys.argv[1:] == [DYNAMIC_CHILD]:
         child_process('chip_smoke_dynamic.jsonl', [phase_dynamic_path, phase_f1_path])
+    elif sys.argv[1:] == [RACE_CHILD]:
+        child_process('chip_smoke_race.jsonl', [phase_race_path])
     else:
         main()

@@ -1,9 +1,10 @@
 """Vehicle dynamics models on tensors, ported from ``dgsqp_tpu/dynamics/models.py``.
 
 It carries the ``DynamicsModel`` base (continuous ODE, euler/rk discretisations,
-Jacobians and Hessians by ``torch.func``, the host-side marshalling hooks, a saved track
-loaded by ``config.track_name``), the single integrator, the kinematic unicycles
-(global, Frenet and combined frames; the merge scenario's cars), the kinematic bicycles
+Jacobians and Hessians by ``torch.func``, additive process noise, the host-side step and
+marshalling hooks, a saved track loaded by ``config.track_name``), the single
+integrator, the kinematic unicycles (global, Frenet and combined frames; the merge
+scenario's cars), the kinematic bicycles
 (global, Frenet, velocity-input Frenet and combined; the racing scenarios'), the
 dynamic (Pacejka or linear tire) bicycles in the same three frames (the dynamic
 studies'), and the string-keyed ``get_dynamics_model``.
@@ -22,8 +23,8 @@ from torch.func import jacfwd, jacrev
 
 from dgsqp_torch.dynamics.model_types import (DynamicBicycleConfig, DynamicsConfig,
                                               KinematicBicycleConfig, UnicycleConfig)
-from dgsqp_torch.ops.dynamics import fd_step
-from dgsqp_torch.types import VehiclePrediction, VehicleState
+from dgsqp_torch.ops.dynamics import dyn_step, fd_step
+from dgsqp_torch.types import VehicleActuation, VehiclePrediction, VehicleState
 from dgsqp_torch.utils.math import resistance
 
 
@@ -33,10 +34,10 @@ class DynamicsModel:
     n_q: int
     n_u: int
     curvature_model: bool = False
+    # the step and its derivatives are one operation (``ops.dynamics.dyn_step``)
+    fused_step: bool = False
 
     def __init__(self, t0: float, config: DynamicsConfig, track=None):
-        if config.noise:
-            raise NotImplementedError('process noise is not ported')
         self.t0 = t0
         self.model_config = config
         if config.track_name is not None:
@@ -47,6 +48,17 @@ class DynamicsModel:
         self.M = config.M
         self.h = self.dt / self.M
 
+        # additive process noise: fd_noisy(q, u, m) = fd(q, u) + sqrtm(cov) @ m
+        self.noise_sqrt = None
+        if config.noise:
+            if config.noise_cov is None:
+                raise RuntimeError('Noise covariance matrix not provided to dynamics model')
+            cov = np.asarray(config.noise_cov, dtype=np.float64)
+            if cov.ndim == 1:
+                cov = np.diag(cov)
+            from scipy.linalg import sqrtm
+            self.noise_sqrt = np.real(sqrtm(cov))
+
     @abstractmethod
     def fc(self, q, u):
         """Continuous-time dynamics dq/dt = fc(q, u)."""
@@ -55,14 +67,17 @@ class DynamicsModel:
         """One discrete step with the configured integrator."""
         return self.fd_plain(q, u, dt)
 
-    def fd_plain(self, q, u, dt: Optional[float] = None):
+    def fd_plain(self, q, u, dt: Optional[float] = None, M: Optional[int] = None,
+                 method: Optional[str] = None):
         """``fd`` written in tensor operations (the dynamic bicycles' kernel's plain
-        version)."""
+        version); ``dt``, the sub-step count ``M`` and ``method`` default to the
+        model's own."""
         dt = self.dt if dt is None else dt
-        method = self.model_config.discretization_method
+        method = method or self.model_config.discretization_method
         if method == 'euler':
             return q + dt * self.fc(q, u)
-        M, h = self.M, dt / self.M
+        M = M or self.M
+        h = dt / M
         x = q
         for _ in range(M):
             if method == 'rk4':
@@ -83,6 +98,13 @@ class DynamicsModel:
             else:
                 raise ValueError(f'Discretization method {method} not recognized')
         return x
+
+    def fd_noisy(self, q, u, m):
+        """Discrete step with an additive process-noise sample ``m`` (standard normal)."""
+        if self.noise_sqrt is None:
+            return self.fd(q, u)
+        return self.fd(q, u) + m @ torch.as_tensor(self.noise_sqrt.T, dtype=m.dtype,
+                                                   device=m.device)
 
     # single-instance Jacobians (vmap them for a batch)
     def fA(self, q, u):
@@ -108,12 +130,39 @@ class DynamicsModel:
     def fGd(self, q, u):
         return jacfwd(jacfwd(self.fd, argnums=1), argnums=0)(q, u)
 
+    # ----------------------------------------------------------- host-side step
+    def _host_rk4(self, q, u, T: float, n_sub: int):
+        """``n_sub`` rk4 sub-steps over ``T`` of one point q (n_q,), u (n_u,)."""
+        return self.fd_plain(q, u, T, n_sub, 'rk4')
+
+    def step(self, vehicle_state: VehicleState, T: Optional[float] = None,
+             device='cuda', dtype=torch.float64):
+        """Integrate the noise-free model forward one interval ``T`` (default its
+        ``dt``) by fine fixed-step rk4 (``max(8, M)`` sub-steps, whatever the model's
+        own discretization) on ``device`` in ``dtype``, and write the result back into
+        the state, with the frame the model does not carry recomputed by the track."""
+        q, u = self.state2qu(vehicle_state)
+        dt = self.dt if T is None else T
+        qt = torch.as_tensor(q, dtype=dtype, device=device)
+        ut = torch.as_tensor(u, dtype=dtype, device=device)
+        q_n = self._host_rk4(qt, ut, dt, max(8, self.M)).cpu().numpy()
+        self.qu2state(vehicle_state, q_n, u)
+        vehicle_state.t = (vehicle_state.t or 0.0) + dt
+        if self.track is not None:
+            if self.curvature_model:
+                self.track.local_to_global_typed(vehicle_state)
+            else:
+                self.track.global_to_local_typed(vehicle_state)
+
     @abstractmethod
     def state2qu(self, state: VehicleState) -> Tuple[np.ndarray, np.ndarray]:
         ...
 
     def state2q(self, state: VehicleState) -> np.ndarray:
         return self.state2qu(state)[0]
+
+    def input2u(self, inp: VehicleActuation) -> np.ndarray:
+        return np.array([inp.u_a, inp.u_steer])[:self.n_u]
 
     @abstractmethod
     def qu2state(self, state: VehicleState, q: Optional[np.ndarray] = None,
@@ -138,6 +187,25 @@ class DynamicsModel:
     def _pred_q_fields(self):
         """(prediction field name, q column) pairs; overridden per model."""
         return []
+
+    def qu2interpolator(self, t0: float, q: np.ndarray, u: Optional[np.ndarray] = None,
+                        extrapolate: bool = False):
+        """Dense-time interpolator over a predicted trajectory: f(t) -> (q(t), u(t)) by
+        per-channel linear interpolation on the grid t0 + k*dt (host numpy)."""
+        q = np.asarray(q)
+        T = t0 + self.dt * np.arange(q.shape[0])
+        u = np.asarray(u) if u is not None else None
+        Tu = t0 + self.dt * np.arange(u.shape[0]) if u is not None else None
+
+        def f(t):
+            t = np.clip(t, T[0], T[-1]) if not extrapolate else t
+            qt = np.stack([np.interp(t, T, q[:, i]) for i in range(q.shape[1])], axis=-1)
+            if u is None:
+                return qt, None
+            tu = np.clip(t, Tu[0], Tu[-1]) if not extrapolate else t
+            ut = np.stack([np.interp(tu, Tu, u[:, i]) for i in range(u.shape[1])], axis=-1)
+            return qt, ut
+        return f
 
 
 class IntegratorModel(DynamicsModel):
@@ -426,6 +494,8 @@ class KinematicBicycleCombined(_KinematicBicycleBase):
 
 
 class _DynamicBicycleBase(DynamicsModel):
+    fused_step = True
+
     def __init__(self, t0, config: DynamicBicycleConfig = None, track=None):
         config = config or DynamicBicycleConfig()
         if config.tire_model not in ('pacejka', 'linear'):
@@ -464,6 +534,11 @@ class _DynamicBicycleBase(DynamicsModel):
             raise ValueError(f'{type(self).__name__}.fd steps only at its own dt '
                              f'{self.dt}, not {dt}')
         return fd_step(self, q, u)
+
+    def _host_rk4(self, q, u, T: float, n_sub: int):
+        """The host step's rk4 as one ``dyn_step`` launch at the step's own ``T`` and
+        sub-step count on a CUDA tensor (its plain version on the CPU)."""
+        return dyn_step(self, q[None], u[None], 0, dt=T, M=n_sub, method='rk4')[0][0]
 
     # the fused step's second derivatives reach a forward pass only through its reverse
     # rule (see dgsqp_torch.ops.dynamics), so the Hessians are taken forward-over-reverse

@@ -77,3 +77,8 @@ class MultiAgentDynamicsModel:
             pred = predictions[a] if predictions is not None else None
             out.append(m.qu2prediction(pred, qa, ua))
         return out
+
+    def step(self, states: List[VehicleState], device='cuda', dtype=torch.float64):
+        """Advance every agent's plant one dt (each model's host ``step``)."""
+        for m, s in zip(self.dynamics_models, states):
+            m.step(s, device=device, dtype=dtype)

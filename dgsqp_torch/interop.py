@@ -17,7 +17,13 @@ the caller) and never imports JAX, so both packages can compute on bit-identical
   ``_evaluate_mpcc`` output, a dict of per-agent lists, stacked over the games) into the
   port's batched ``P``;
 * :func:`load_track_splines` installs the knots and coefficients of the JAX
-  ``TrackSplines``' ``_Spline1D`` objects on a port model's splines.
+  ``TrackSplines``' ``_Spline1D`` objects on a port model's splines;
+* :func:`vehicle_state` copies a ``VehicleState`` (of either package) field by field
+  into the port's ``VehicleState``;
+* :func:`mpc_state` carries a ``CA_LTV_MPC``'s host state (warm starts, the last input,
+  the predictions, the delay buffers) and :func:`race_state` a ``RaceStack``'s (both
+  trackers, the planner's warm start, the game references and the trigger's flag) into
+  the port's objects, so that both packages can continue from the same mid-race state.
 """
 from __future__ import annotations
 
@@ -94,3 +100,73 @@ def load_track_splines(splines, src):
                         coeffs=np.asarray(getattr(src, name).coeffs, np.float64))
         for name in SPLINE_NAMES})
     return splines
+
+
+def vehicle_state(src, cls=None):
+    """A ``VehicleState`` (or any message dataclass) copied field by field into the
+    port's class of the same name."""
+    from dgsqp_torch import types
+    cls = cls or getattr(types, type(src).__name__)
+    kw = {}
+    for f in dataclasses.fields(src):
+        v = getattr(src, f.name)
+        if dataclasses.is_dataclass(v):
+            v = vehicle_state(v)
+        elif hasattr(v, 'shape'):
+            v = np.array(v)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+_MPC_FIELDS = ('u_ws', 'du_ws', 'u_prev', 'q_pred', 'u_pred', 'du_pred')
+
+
+def mpc_state(src, dst=None) -> dict:
+    """The host state of a ``CA_LTV_MPC`` (or such a state, a dict) as numpy arrays
+    (and its time and delay buffers); installed into the port's ``dst`` when one is
+    given."""
+    if isinstance(src, dict):
+        state = src
+    else:
+        state = {name: np.array(getattr(src, name), dtype=np.float64)
+                 for name in _MPC_FIELDS}
+        state['t'] = src.t
+        state['delay_buffer'] = None if src.delay_buffer is None \
+            else [list(buf) for buf in src.delay_buffer]
+    if dst is not None:
+        for name in _MPC_FIELDS:
+            setattr(dst, name, state[name].copy())
+        dst.t = state['t']
+        if state['delay_buffer'] is not None:
+            for buf, vals in zip(dst.delay_buffer, state['delay_buffer']):
+                buf.clear()
+                buf.extend(vals)
+    return state
+
+
+def race_state(src, dst=None) -> dict:
+    """The state of a ``RaceStack`` between control steps (or such a state, a dict):
+    both trackers' :func:`mpc_state`, the planner's warm start, the game references
+    ``(t_grid, q_ref, s_lim)`` per car and the trigger's ``solve_game``; installed
+    into the port's ``dst`` when one is given."""
+    if isinstance(src, dict):
+        state = src
+    else:
+        state = dict(
+            trackers=[mpc_state(mpc) for mpc in src.trackers],
+            planner_u_ws=np.array(src.planner.u_ws, dtype=np.float64),
+            planner_l_ws=None if src.planner.l_ws is None
+            else np.array(src.planner.l_ws, dtype=np.float64),
+            game_refs=[None if ref is None else
+                       (np.array(ref[0], np.float64), np.array(ref[1], np.float64),
+                        (float(ref[2][0]), float(ref[2][1]))) for ref in src.game_refs],
+            solve_game=bool(src.solve_game))
+    if dst is not None:
+        for mpc, mpc_dst in zip(state['trackers'], dst.trackers):
+            mpc_state(mpc, mpc_dst)
+        dst.planner.u_ws = state['planner_u_ws'].copy()
+        dst.planner.l_ws = None if state['planner_l_ws'] is None \
+            else state['planner_l_ws'].copy()
+        dst.game_refs = list(state['game_refs'])
+        dst.solve_game = state['solve_game']
+    return state

@@ -22,8 +22,9 @@ second derivatives come from :func:`dyn_step`:
   forward gradients off, so a forward-over-forward Hessian would see none: take second
   derivatives forward-over-reverse (the models' ``fEd``/``fFd``/``fGd`` do).
 
-Launches are counted in ``dyn_step.launches`` and, by order, in
-``dyn_step.launches_by_order``.
+Launches are counted in ``dyn_step.launches``, by order in
+``dyn_step.launches_by_order`` and by order and point count in
+``dyn_step.launches_by_shape`` (keys ``'order{k}_P{P}'``).
 """
 from __future__ import annotations
 
@@ -248,12 +249,15 @@ def _func_step(model, q, u, order: int):
     return model.fd_plain(q, u), J, H
 
 
-def dyn_step_plain(model, q, u, order: int):
+def dyn_step_plain(model, q, u, order: int, dt=None, M=None, method=None):
     """(f, J, H) in tensor operations (J and H None below their order): the model's own
     ``fd_plain``, on ``_T2`` numbers seeded with the inputs for J and H; q (P, n_q),
-    u (P, n_u)."""
+    u (P, n_u).  ``dt``, ``M`` and ``method`` override the model's step (order 0
+    only: the derivatives are the model's own step's)."""
     if order == 0:
-        return model.fd_plain(q, u), None, None
+        return model.fd_plain(q, u, dt, M, method), None, None
+    if (dt, M, method) != (None, None, None):
+        raise ValueError('dyn_step: step overrides are for order 0 only')
     if kernel_kind(model) < 0:
         return _func_step(model, q, u, order)
     P, nq = q.shape
@@ -267,12 +271,16 @@ def dyn_step_plain(model, q, u, order: int):
     return f.v, f.g, f.h
 
 
-def dyn_step(model, q, u, order: int):
+def dyn_step(model, q, u, order: int, dt=None, M=None, method=None):
     """fd(q, u) and, by ``order``, its Jacobian (P, n_q, L) and second derivatives
-    (P, n_q, L, L) at the points q (P, n_q), u (P, n_u).  A CPU tensor takes
+    (P, n_q, L, L) at the points q (P, n_q), u (P, n_u).  ``dt``, the sub-step count
+    ``M`` and ``method`` default to the model's own; at order 0 they may differ (the
+    plant's host step integrates at the simulation's step).  A CPU tensor takes
     :func:`dyn_step_plain`; a CUDA tensor launches ``csrc/dyn_step.cu``."""
     if q.device.type == 'cpu':
-        return dyn_step_plain(model, q, u, order)
+        return dyn_step_plain(model, q, u, order, dt, M, method)
+    if order and (dt, M, method) != (None, None, None):
+        raise ValueError('dyn_step: step overrides are for order 0 only')
     kind = kernel_kind(model)
     if kind < 0:
         raise ValueError(f'dyn_step: no kernel for {type(model).__name__} with '
@@ -296,26 +304,29 @@ def dyn_step(model, q, u, order: int):
     else:
         kp_ptr = cum_ptr = None
         n_kp, length = 0, 0.0
-    cfg = model.model_config
-    dt = float(model.dt)
+    method = method or model.model_config.discretization_method
+    dt = float(model.dt if dt is None else dt)
+    M = int(M or model.M)
     prm, flags = _params(model)
     eps = float(np.spacing(torch.finfo(q.dtype).eps))
     lib = _load('dyn_step')
     fn = lib.dgsqp_dyn_step_f32 if q.dtype == torch.float32 else lib.dgsqp_dyn_step_f64
     index = q.device.index or 0
-    rc = fn(q.data_ptr(), u.data_ptr(), P, kind, nq, nu, METHODS[cfg.discretization_method],
-            int(model.M), dt, dt / model.M, prm, flags, kp_ptr, cum_ptr, n_kp, length, eps,
-            order, f.data_ptr(), J.data_ptr() if J is not None else None,
+    rc = fn(q.data_ptr(), u.data_ptr(), P, kind, nq, nu, METHODS[method], M, dt, dt / M,
+            prm, flags, kp_ptr, cum_ptr, n_kp, length, eps, order, f.data_ptr(), J.data_ptr() if J is not None else None,
             H.data_ptr() if H is not None else None, index,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, 'dyn_step')
     dyn_step.launches += 1
     dyn_step.launches_by_order[order] = dyn_step.launches_by_order.get(order, 0) + 1
+    key = f'order{order}_P{P}'
+    dyn_step.launches_by_shape[key] = dyn_step.launches_by_shape.get(key, 0) + 1
     return f, J, H
 
 
 dyn_step.launches = 0
 dyn_step.launches_by_order = {}
+dyn_step.launches_by_shape = {}
 
 
 def _points(q, u):

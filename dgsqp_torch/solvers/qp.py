@@ -1,5 +1,7 @@
-"""Batched dense inequality-constrained QP solver (primal-dual interior point), ported
-from ``solve_qp`` in ``dgsqp_tpu/solvers/qp.py``.
+"""Batched dense QP solvers (primal-dual interior point), ported from
+``dgsqp_tpu/solvers/qp.py``: ``solve_qp`` (and ``solve_qp_batch``, its JAX name for a
+batch), the equality-constrained ``solve_eq_qp`` (the LTV-MPC's dense backend) and the
+elastic-mode ``solve_elastic_qp``.
 
 Solves, for every game b of a batch,
 
@@ -59,25 +61,28 @@ def _step_length(z, dz, frac=0.99):
     return torch.clamp(frac * torch.amin(ratios, dim=-1), max=1.0)
 
 
-def _ruiz_equilibrate(Q, A, iters: int = 3):
-    """Ruiz equilibration of the KKT block matrix [[Q, A'], [A, 0]]: diagonal scalings
-    ``(d_x, e_r)`` giving ``Dx Q Dx`` and ``Er A Dx`` ~unit row/col inf-norms."""
+def _ruiz_equilibrate(Q, A, E=None, iters: int = 3):
+    """Ruiz equilibration of the KKT block matrix [[Q, A', E'], [A, 0, 0], [E, 0, 0]]:
+    diagonal scalings ``(d_x, e_a)`` (plus ``e_e`` when an equality block ``E`` is
+    given) giving ``Dx Q Dx``, ``Ea A Dx`` and ``Ee E Dx`` ~unit row/col inf-norms."""
     B, n = Q.shape[0], Q.shape[-1]
-    m = A.shape[-2]
+    blocks = [A] + ([E] if E is not None else [])
+    e_rs = [torch.ones(B, Bk.shape[-2], dtype=Q.dtype, device=Q.device) for Bk in blocks]
     d_x = torch.ones(B, n, dtype=Q.dtype, device=Q.device)
-    e_r = torch.ones(B, m, dtype=Q.dtype, device=Q.device)
     for _ in range(iters):
         Qs = Q * d_x[:, :, None] * d_x[:, None, :]
         col_norm = torch.amax(torch.abs(Qs), dim=-2)
-        if m:
-            col_norm = torch.maximum(col_norm, torch.amax(
-                torch.abs(A * e_r[:, :, None] * d_x[:, None, :]), dim=-2))
+        for Bk, e_r in zip(blocks, e_rs):
+            if Bk.shape[-2]:
+                col_norm = torch.maximum(col_norm, torch.amax(
+                    torch.abs(Bk * e_r[:, :, None] * d_x[:, None, :]), dim=-2))
         d_x = d_x / torch.sqrt(torch.clamp(col_norm, min=1e-8))
-        if m:
-            rn = torch.amax(torch.abs(A * e_r[:, :, None] * d_x[:, None, :]), dim=-1)
-            # all-zero rows get no scaling (the 1e-8 guard would compound over sweeps)
-            e_r = e_r / torch.where(rn == 0, 1.0, torch.sqrt(torch.clamp(rn, min=1e-8)))
-    return torch.clamp(d_x, 1e-6, 1e6), torch.clamp(e_r, 1e-6, 1e6)
+        for i, (Bk, e_r) in enumerate(zip(blocks, e_rs)):
+            if Bk.shape[-2]:
+                rn = torch.amax(torch.abs(Bk * e_r[:, :, None] * d_x[:, None, :]), dim=-1)
+                # all-zero rows get no scaling (the 1e-8 guard would compound over sweeps)
+                e_rs[i] = e_r / torch.where(rn == 0, 1.0, torch.sqrt(torch.clamp(rn, min=1e-8)))
+    return tuple([torch.clamp(d_x, 1e-6, 1e6)] + [torch.clamp(e, 1e-6, 1e6) for e in e_rs])
 
 
 def solve_qp(Q, q, A, b, tol: float = 1e-8, max_iters: int = 50, scale: bool = True,
@@ -387,3 +392,178 @@ def _solve_scaled(Q, q, A, b, tol, max_iters, polish_iters, warm, box, pairs,
     ok = (best_res < 1e4 * tol * scale_q) & torch.isfinite(best_res)
     t_out = torch.clamp(b - _mv(A, best_x), min=eps_floor)
     return QPSolution(best_x, unperm(best_lam), unperm(t_out), ok, it, best_res)
+
+
+def solve_qp_batch(Q, q, A, b, tol: float = 1e-8, max_iters: int = 50) -> QPSolution:
+    """The JAX package's batched entry point: :func:`solve_qp` takes the batch
+    natively."""
+    return solve_qp(Q, q, A, b, tol, max_iters)
+
+
+class EqQPSolution(NamedTuple):
+    x: torch.Tensor        # (B, n)
+    lam: torch.Tensor      # (B, m) inequality duals >= 0
+    nu: torch.Tensor       # (B, me) equality duals
+    ok: torch.Tensor       # (B,) bool
+    iters: torch.Tensor    # (B,) int
+    res: torch.Tensor      # (B,)
+
+
+def _amax0(v):
+    """max over the last dimension with 0 included (``jnp.max(.., initial=0.0)`` of
+    non-negative values: 0 for an empty dimension)."""
+    if v.shape[-1] == 0:
+        return v.new_zeros(v.shape[:-1])
+    return torch.clamp(_amax(v), min=0.0)
+
+
+def cholesky_nan(K):
+    """Cholesky factor by ``torch.linalg.cholesky_ex``, NaN where a matrix is not
+    positive definite (``jnp.linalg.cholesky``'s result, with no host sync to check)."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info != 0)[..., None, None], torch.nan, L)
+
+
+def solve_eq_qp(Q, q, A, b, E, d, tol: float = 1e-8, max_iters: int = 50,
+                scale: bool = True) -> EqQPSolution:
+    """Solve, for a batch, min 1/2 x'Qx + q'x  s.t.  Ex = d,  Ax <= b: Q (B, n, n),
+    A (B, m, n), E (B, me, n).
+
+    The same Mehrotra IPM as :func:`solve_qp` with the equality block handled by a
+    Schur complement on the reduced normal matrix (two Cholesky factorizations an
+    iteration, ``torch.linalg`` as ``jnp.linalg`` in the JAX version; a factor that
+    fails is NaN there, and the problem then ends not ``ok``).  With ``scale=True``
+    the data is Ruiz-equilibrated first and the solution and duals unscaled on return.
+    """
+    B, n = q.shape
+    m = b.shape[-1]
+    me = d.shape[-1]
+    dtype, dev = q.dtype, q.device
+
+    def scale_of(q, b, d):
+        return 1.0 + torch.maximum(_amax(torch.abs(q)),
+                                   torch.maximum(_amax0(torch.abs(b)), _amax0(torch.abs(d))))
+
+    if scale:
+        d_x, e_a, e_e = _ruiz_equilibrate(Q, A, E)
+        inner = solve_eq_qp(Q * d_x[:, :, None] * d_x[:, None, :], q * d_x,
+                            A * e_a[:, :, None] * d_x[:, None, :], b * e_a,
+                            E * e_e[:, :, None] * d_x[:, None, :], d * e_e,
+                            tol, max_iters, scale=False)
+        x = inner.x * d_x
+        lam = inner.lam * e_a
+        nu = inner.nu * e_e
+        # re-certify on the original data
+        Ax_b = _mv(A, x) - b
+        r_d = _mv(Q, x) + q + _mtv(A, lam) + _mtv(E, nu)
+        res = torch.maximum(_amax(torch.abs(r_d)),
+                            torch.maximum(_amax0(torch.clamp(Ax_b, min=0.0)),
+                                          torch.maximum(_amax0(torch.abs(_mv(E, x) - d)),
+                                                        _amax0(torch.abs(lam * Ax_b)))))
+        ok = (res < 1e4 * tol * scale_of(q, b, d)) & torch.isfinite(res)
+        return EqQPSolution(x, lam, nu, ok, inner.iters, res)
+
+    mm = max(m, 1)
+    eye_n = torch.eye(n, dtype=dtype, device=dev)
+    eye_e = torch.eye(me, dtype=dtype, device=dev)
+    Et = E.transpose(-1, -2)
+    sc = scale_of(q, b, d)
+
+    def residuals(x, lam, nu, t):
+        r_d = _mv(Q, x) + q + _mtv(A, lam) + _mtv(E, nu)
+        r_p = _mv(A, x) + t - b
+        r_e = _mv(E, x) - d
+        mu = torch.sum(t * lam, dim=-1) / mm
+        return r_d, r_p, r_e, mu
+
+    def kkt_res(r_d, r_p, r_e, mu):
+        return torch.maximum(torch.maximum(_amax(torch.abs(r_d)), _amax0(torch.abs(r_p))),
+                             torch.maximum(_amax0(torch.abs(r_e)), mu))
+
+    def body(x, lam, nu, t):
+        r_d, r_p, r_e, mu = residuals(x, lam, nu, t)
+        dd = lam / t
+        K = Q + (A.transpose(-1, -2) * dd[:, None, :]) @ A
+        trace = torch.diagonal(K, dim1=-2, dim2=-1).sum(-1)
+        K = K + (1e-12 * trace / n)[:, None, None] * eye_n
+        L = cholesky_nan(K)
+        Kinv_Et = torch.cholesky_solve(Et, L)
+        Ls = cholesky_nan(E @ Kinv_Et + 1e-12 * eye_e)
+
+        def newton(r_c):
+            r1 = -r_d - _mtv(A, dd * r_p - r_c / t)
+            w = torch.cholesky_solve(r1[..., None], L)[..., 0]
+            dnu = torch.cholesky_solve((_mv(E, w) + r_e)[..., None], Ls)[..., 0]
+            dx = w - _mv(Kinv_Et, dnu)
+            dlam = dd * (_mv(A, dx) + r_p) - r_c / t
+            dt = -(r_c + t * dlam) / lam
+            return dx, dlam, dnu, dt
+
+        dx_a, dlam_a, dnu_a, dt_a = newton(t * lam)
+        a_p = _step_length(t, dt_a)
+        a_d = _step_length(lam, dlam_a)
+        mu_aff = torch.sum((t + a_p[:, None] * dt_a) * (lam + a_d[:, None] * dlam_a),
+                           dim=-1) / mm
+        sigma = (mu_aff / (mu + 1e-300)) ** 3
+
+        r_c = t * lam + dt_a * dlam_a - (sigma * mu)[:, None]
+        dx, dlam, dnu, dt = newton(r_c)
+        al = torch.minimum(_step_length(t, dt), _step_length(lam, dlam))[:, None]
+
+        x_n = x + al * dx
+        lam_n = lam + al * dlam
+        nu_n = nu + al * dnu
+        t_n = t + al * dt
+        res = kkt_res(*residuals(x_n, lam_n, nu_n, t_n))
+        done = (res < tol * sc) | ~torch.isfinite(res)
+        bad = (~torch.isfinite(_amax(torch.abs(x_n)) + _amax0(torch.abs(lam_n))))[:, None]
+        return (torch.where(bad, x, x_n), torch.where(bad, lam, lam_n),
+                torch.where(bad, nu, nu_n), torch.where(bad, t, t_n), done | bad[:, 0], res)
+
+    x = q.new_zeros(B, n)
+    lam = q.new_ones(B, m)
+    nu = q.new_zeros(B, me)
+    t = torch.clamp(torch.abs(b), min=1.0)
+    it = torch.zeros(B, dtype=torch.long, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    res = torch.full((B,), torch.inf, dtype=dtype, device=dev)
+    active = ~done & (it < max_iters)
+    while bool(active.any()):
+        x_n, lam_n, nu_n, t_n, done_n, res_n = body(x, lam, nu, t)
+        act = active[:, None]
+        x = torch.where(act, x_n, x)
+        lam = torch.where(act, lam_n, lam)
+        nu = torch.where(act, nu_n, nu)
+        t = torch.where(act, t_n, t)
+        it = torch.where(active, it + 1, it)
+        done = torch.where(active, done_n, done)
+        res = torch.where(active, res_n, res)
+        active = ~done & (it < max_iters)
+
+    res = kkt_res(*residuals(x, lam, nu, t))
+    ok = (res < 1e4 * tol * sc) & torch.isfinite(res)
+    return EqQPSolution(x, lam, nu, ok, it, res)
+
+
+def solve_elastic_qp(Q, q, A, b, eta: float = 1e3, rho: float = 1e3,
+                     tol: float = 1e-8, max_iters: int = 50) -> QPSolution:
+    """Elastic-mode QP, an always-feasible relaxation with slack penalties, for a batch:
+
+        min 1/2 x'Qx + q'x + eta*1's + rho/2 s's   s.t.  Ax - s <= b,  s >= 0
+
+    solved by :func:`solve_qp` (so by the Cholesky kernels on the card).  No solver
+    calls it from its hot path, as in the JAX package; the duals returned are those of
+    the original rows."""
+    B, n = q.shape
+    m = b.shape[-1]
+    eye_m = torch.eye(m, dtype=q.dtype, device=q.device).expand(B, m, m)
+    Z = q.new_zeros(B, n, m)
+    Qem = torch.cat([torch.cat([Q, Z], dim=-1),
+                     torch.cat([Z.transpose(-1, -2), rho * eye_m], dim=-1)], dim=-2)
+    qem = torch.cat([q, q.new_full((B, m), eta)], dim=-1)
+    Aem = torch.cat([torch.cat([A, -eye_m], dim=-1),
+                     torch.cat([q.new_zeros(B, m, n), -eye_m], dim=-1)], dim=-2)
+    bem = torch.cat([b, q.new_zeros(B, m)], dim=-1)
+    sol = solve_qp(Qem, qem, Aem, bem, tol=tol, max_iters=max_iters)
+    return QPSolution(sol.x[:, :n], sol.lam[:, :m], sol.t[:, :m], sol.ok, sol.iters,
+                      sol.res)

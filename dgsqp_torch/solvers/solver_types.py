@@ -1,6 +1,7 @@
-"""Solver parameter dataclasses, a jax-free copy of ``DGSQPParams``, ``DGSQPV2Params``,
-``ALGAMESParams``, ``IBRParams`` and ``PATHMCPParams`` from
-``dgsqp_tpu/solvers/solver_types.py`` (field for field, same defaults).
+"""Solver parameter dataclasses, a jax-free copy of ``PIDParams``, ``DGSQPParams``,
+``DGSQPV2Params``, ``ALGAMESParams``, ``IBRParams``, ``PATHMCPParams`` and
+``CALTVMPCParams`` from ``dgsqp_tpu/solvers/solver_types.py`` (field for field, same
+defaults).
 
 CasADi/codegen knobs (``qp_interface``, ``code_gen``, ``jit`` ...) are kept as inert
 fields so configurations port unchanged.
@@ -16,6 +17,39 @@ from dgsqp_torch.types import PythonMsg
 @dataclass
 class ControllerConfig(PythonMsg):
     dt: float = 0.1
+
+
+@dataclass
+class PIDParams(ControllerConfig):
+    Kp: float = 2.0
+    Ki: float = 0.0
+    Kd: float = 0.0
+    int_e_max: float = 100.0
+    int_e_min: float = -100.0
+    u_max: Optional[float] = None
+    u_min: Optional[float] = None
+    du_max: Optional[float] = None
+    du_min: Optional[float] = None
+    u_ref: float = 0.0
+    x_ref: float = 0.0
+    noise: bool = False
+    noise_max: float = 0.1
+    noise_min: float = -0.1
+    periodic_disturbance: bool = False
+    disturbance_amplitude: float = 0.1
+    disturbance_period: float = 1.0
+
+    def default_speed_params(self):
+        self.Kp, self.Ki, self.Kd = 1.0, 0.0, 0.0
+        self.u_min, self.u_max = -2.0, 2.0
+        self.du_min, self.du_max = -10 * self.dt, 10 * self.dt
+        self.noise = False
+
+    def default_steer_params(self):
+        self.Kp, self.Ki, self.Kd = 1.0, 0.0005 / self.dt, 0.0
+        self.u_min, self.u_max = -0.35, 0.35
+        self.du_min, self.du_max = -4 * self.dt, 4 * self.dt
+        self.noise = False
 
 
 @dataclass
@@ -189,3 +223,37 @@ class PATHMCPParams(ControllerConfig):
     qp_tol: Optional[float] = None         # None -> dtype default (1e-8 / 3e-7)
     qp_max_iters: int = 50
     jos_gamma: float = 2.0         # residual-watchdog growth tolerance (josephy)
+
+
+@dataclass
+class CALTVMPCParams(ControllerConfig):
+    N: int = 10
+    qp_iters: int = 2
+    damping: float = 0.75
+
+    state_scaling: Optional[list] = None
+    input_scaling: Optional[list] = None
+
+    soft_state_bound_idxs: Optional[list] = None
+    soft_state_bound_quad: Optional[list] = None
+    soft_state_bound_lin: Optional[list] = None
+
+    soft_constraint_idxs: Optional[list] = None
+    soft_constraint_quad: Optional[list] = None
+    soft_constraint_lin: Optional[list] = None
+
+    wrapped_state_idxs: Optional[list] = None
+    wrapped_state_periods: Optional[list] = None
+
+    delay: Optional[list] = None
+    time_varying: bool = False
+
+    verbose: bool = False
+    solver_name: str = 'CA_LTV_MPC'
+    qp_interface: str = 'torch'          # inert
+    # 'dense' = the equality-constrained IPM (solve_eq_qp) on the full decision vector;
+    # 'riccati' = the stage-structured OCP-QP (solvers/ocp_qp.py), soft constraints as
+    # slack stage inputs; 'auto' = riccati
+    qp_backend: str = 'auto'
+    debug_plot: bool = False             # inert
+    pause_on_plot: bool = False          # inert

@@ -60,7 +60,33 @@ def _compute_angle(p0, p1, p2):
     return torch.atan2(det, dot)
 
 
-class RadiusArclengthTrack:
+class TrackAdapters:
+    """The host-side adapters both track kinds share: a ``VehicleState``'s frame
+    converted in place (float64 on the CPU, as the JAX package computes them in x64),
+    and the centerline and boundaries drawn on a matplotlib axis."""
+
+    def local_to_global_typed(self, state) -> int:
+        xyp = self.local_to_global(torch.tensor([state.p.s, state.p.x_tran, state.p.e_psi],
+                                                dtype=torch.float64)).numpy()
+        state.x.x, state.x.y, state.e.psi = float(xyp[0]), float(xyp[1]), float(xyp[2])
+        return 0
+
+    def global_to_local_typed(self, state) -> int:
+        sey = self.global_to_local(torch.tensor([state.x.x, state.x.y, state.e.psi],
+                                                dtype=torch.float64)).numpy()
+        state.p.s, state.p.x_tran, state.p.e_psi = float(sey[0]), float(sey[1]), float(sey[2])
+        return 0
+
+    def plot_map(self, ax, pts_per_dist: float = None):
+        center, inner, outer = self.get_track_xy(pts_per_dist)
+        ax.plot(center[:, 0], center[:, 1], 'k--', linewidth=0.8)
+        ax.plot(inner[:, 0], inner[:, 1], 'k-', linewidth=1.0)
+        ax.plot(outer[:, 0], outer[:, 1], 'k-', linewidth=1.0)
+        ax.set_aspect('equal')
+        return ax
+
+
+class RadiusArclengthTrack(TrackAdapters):
     """Piecewise straight/arc track defined by ``cl_segs = [[length, radius], ...]``.
 
     ``radius == 0`` denotes a straight segment; otherwise the signed radius of the arc.
@@ -275,3 +301,13 @@ class RadiusArclengthTrack:
         ey_out = torch.take_along_dim(ey_cand, first, dim=-1)[..., 0]
         epsi_out = torch.take_along_dim(epsi_cand, first, dim=-1)[..., 0]
         return torch.stack([s_out, ey_out, epsi_out], dim=-1)
+
+    def get_track_xy(self, pts_per_dist: float = None):
+        """Centerline and boundaries (n, 3) sampled for plotting (host numpy)."""
+        if pts_per_dist is None:
+            pts_per_dist = 2000 / self.track_length
+        n = max(2, int(self.track_length * pts_per_dist))
+        s = np.linspace(0, self.track_length - 1e-9, n)
+        return tuple(self.local_to_global(torch.as_tensor(
+            np.stack([s, np.full(n, ey), np.zeros(n)], -1))).numpy()
+            for ey in (0.0, self.half_width, -self.half_width))

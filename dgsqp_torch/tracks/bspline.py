@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dgsqp_torch.tracks.base import _at, jnp_mod
+from dgsqp_torch.tracks.base import TrackAdapters, _at, jnp_mod
 
 
 def _natural_cubic_coeffs(x: np.ndarray, y: np.ndarray) -> np.ndarray:
@@ -116,7 +116,7 @@ class _Spline1D:
         return self._set.deriv2(s)[..., 0]
 
 
-class BSplineTrack:
+class BSplineTrack(TrackAdapters):
     """Track defined by xy waypoints with per-waypoint left/right widths."""
 
     def __init__(self, xy_waypoints: np.ndarray, left_width, right_width,

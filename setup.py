@@ -7,6 +7,6 @@ setup(name='dgsqp_tpu',
                                       'dgsqp_torch', 'dgsqp_torch.*']),
       package_data={'dgsqp_torch.ops': ['csrc/*.cu'],
                     'dgsqp_torch.tracks': ['track_data/*.npz'],
-                    'dgsqp_torch.harness': ['data/*.npz', 'data/*.csv']},
+                    'dgsqp_torch.harness': ['data/*.npz', 'data/*.csv', 'data/*.json']},
       python_requires='>=3.10',
       install_requires=['jax', 'numpy', 'scipy', 'torch'])

@@ -227,3 +227,51 @@ def test_dynamic_step_without_kernel_raises_on_the_card():
         u = torch.zeros(2, m.n_u, device='cuda')
         with pytest.raises(ValueError, match='no kernel'):
             m.fd(q, u)
+
+
+@pytest.mark.cuda
+def test_batch_of_one_kernels_match_torch_linalg():
+    """The race's planner factors and solves one matrix at a time (B = 1, n = 80 with
+    its 56-row polish; k = 1 on the warp path, k = 56 on the column path)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    from chip_smoke import rel_err, spd_batch
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        for n, k in ((80, 1), (80, 56), (56, 1)):
+            A = spd_batch(1, n, dtype, 'cuda', gen)
+            L = linalg.cholesky(A)
+            assert rel_err(L.double(), torch.linalg.cholesky(A).double()) <= tol
+            b = torch.randn(1, n, k, generator=gen, device='cuda', dtype=dtype)
+            b = b[..., 0].contiguous() if k == 1 else b
+            x = linalg.cho_solve(L, b)
+            ref = torch.cholesky_solve(b[..., None] if k == 1 else b, L)
+            assert rel_err(x.double(), ref.reshape(x.shape).double()) <= tol, (n, k)
+
+
+@pytest.mark.cuda
+def test_race_control_step_on_the_card_matches_cpu_float64():
+    """One control step of the race (L_track_barc, mpc_N = game_N = 20, float64) on the
+    card, where its trackers' rollout and linearization and its plants launch
+    ``dyn_step`` and its game planner both linear-algebra kernels, against the same
+    step on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    import numpy as np
+    from chip_smoke import RACE_ATOL, race_state_vector
+    from dgsqp_torch.harness.race import RaceConfig, RaceStack
+    from dgsqp_torch.ops.dynamics import dyn_step
+    fields = ('x.x', 'x.y', 'v.v_long', 'p.s', 'p.x_tran', 'p.e_psi', 'u.u_a', 'u.u_steer')
+    out = {}
+    counts = (linalg.cholesky.launches, linalg.cho_solve.launches, dyn_step.launches)
+    for device in ('cuda', 'cpu'):
+        stack = RaceStack(RaceConfig(), device=device, dtype=torch.float64)
+        states = stack.initial_states()
+        stack.run(initial_states=states, n_steps=1)
+        out[device] = (np.array([race_state_vector(s, fields) for s in states]),
+                       [(g['idx'], g['info']['msg']) for g in stack.game_log])
+        if device == 'cuda':
+            now = (linalg.cholesky.launches, linalg.cho_solve.launches, dyn_step.launches)
+            assert all(b > a for a, b in zip(counts, now)), (counts, now)
+    np.testing.assert_allclose(out['cuda'][0], out['cpu'][0], rtol=0, atol=RACE_ATOL)
+    assert out['cuda'][1] == out['cpu'][1]

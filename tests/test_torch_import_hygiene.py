@@ -41,11 +41,14 @@ def test_importing_every_module_loads_no_jax():
                 'solvers.dgsqp_v2_frenet', 'dynamics.progress_augmented', 'tracks.bspline',
                 'solvers.mcp', 'solvers.ibr', 'solvers.algames', 'solvers.backtrack',
                 'ops.dynamics', 'harness.dynamic_study', 'harness.f1_study',
-                'tracks.track_lib'):
+                'tracks.track_lib', 'solvers.ocp_qp', 'solvers.ca_ltv_mpc', 'solvers.pid',
+                'solvers.abstract_solver', 'dynamics.simulator', 'harness.race',
+                'harness.plotting'):
         assert f'dgsqp_torch.{new}' in mods
     scripts = [p.stem for p in SCRIPTS]
     assert 'torch_monte_carlo_main' in scripts and 'torch_profile_round' in scripts
     assert 'torch_gne_compare_main' in scripts and 'torch_f1_study_main' in scripts
+    assert 'torch_race_main' in scripts
     code = ('import importlib, sys\n'
             f'for m in {mods!r}:\n'
             '    importlib.import_module(m)\n'
@@ -125,3 +128,40 @@ def test_new_entry_points_default_to_the_card():
     for name in ('torch_monte_carlo_main', 'torch_f1_study_main'):
         script = (ROOT / 'scripts' / f'{name}.py').read_text()
         assert "'--device', default='cuda'" in script and "'--dtype'" in script, name
+
+
+def test_mpc_and_race_entry_points_default_to_the_card():
+    """The closed loop's entry points take ``device`` (default ``'cuda'``) and
+    ``dtype``; its script takes ``--device``/``--dtype`` and ``--no-plot``."""
+    import inspect
+
+    from dgsqp_torch.dynamics.simulator import DynamicsSimulator
+    from dgsqp_torch.harness.race import RaceStack, make_game_planner, make_tracker
+    from dgsqp_torch.solvers.ca_ltv_mpc import CA_LTV_MPC
+    for fn in (CA_LTV_MPC.__init__, RaceStack.__init__, DynamicsSimulator.__init__,
+               make_tracker, make_game_planner):
+        params = inspect.signature(fn).parameters
+        assert params['device'].default == 'cuda', fn
+        assert 'dtype' in params, fn
+    script = (ROOT / 'scripts' / 'torch_race_main.py').read_text()
+    assert "'--device', default='cuda'" in script and "'--dtype'" in script
+    assert "'--no-plot'" in script
+
+
+def test_race_stack_opens_only_the_ports_files():
+    """Building the race (the saved track, the recorded raceline) and the record that
+    ``chip_smoke.py`` holds it to open only files in the port's own folders."""
+    code = ('import sys\n'
+            'opened = []\n'
+            "sys.addaudithook(lambda ev, a: opened.append(str(a[0])) if ev == 'open' else None)\n"
+            'from dgsqp_torch.harness.race import RaceStack\n'
+            "RaceStack(device='cpu')\n"
+            'import chip_smoke\n'
+            'chip_smoke.race_record()\n'
+            "data = [p for p in opened if p.endswith(('.npz', '.csv', '.json'))]\n"
+            "bad = [p for p in opened if 'dgsqp_tpu' in p or 'reference/DGSQP' in p]\n"
+            'print(data, bad)\n'
+            'sys.exit(1 if bad or len(data) < 3 else 0)\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
