@@ -16,7 +16,8 @@ Phases, each printing one line on stdout:
    right-hand-side counts on each side of the switch between the two ``cho_solve``
    kernels and off the tile width), the approximate duel's n = 150 with its 96-row
    polish, IBR's best response's n = 50 with its 48-row polish, the merge's n = 120
-   with its 80-row polish (float64 there), and on a batch with one matrix that is not
+   with its 80-row polish (float64 there), ``diagnose_path``'s 128 traced games at
+   n = 100 and 64, and on a batch with one matrix that is not
    positive definite; and times the kernel (device time from a replayed CUDA graph, and
    the time per call of a loop of eager calls), the plain version and the library call
    that computes the same function.
@@ -43,7 +44,9 @@ Phases, each printing one line on stdout:
    defaults and with the PATH-role MCP oracle (``PATHMCP``, ``method='hybrid'``,
    tol 1e-3, 200 iterations, 4 restarts), then ``gne_compare`` of the two (input scale
    2.1/0.436 per agent, match tolerance 0.1, conv_abs only), beside the JAX package's
-   record of the same games (``docs/match_dgsqp_mcp_chicane_N25_r5.json``).
+   record of the same games (``docs/match_dgsqp_mcp_chicane_N25_r5.json``); the games
+   whose status equals the JAX package's current CPU float64 run
+   (``dgsqp_torch/harness/data/oracle_statuses_f64.json``) are counted, not held.
 10. ``ibr_ws``: one batched IBR sweep (``IBRParams(ibr_iters=1, p_tol=d_tol=1e-3)``, the
    study's ``ibr_ws`` warm start) on the 256-game float32 bench batch: both kernels at
    the best response's n = 50 (and its polish's 48 rows).
@@ -94,6 +97,26 @@ Phases, each printing one line on stdout:
    more tracker QPs fail than in the record; its steps/s, ms a step by part, launches
    (both kernels at the planner's n = 80, ``dyn_step`` at one and 20 points) and the
    device's idle share over two profiled steps.
+
+17. ``nested_parity``: DGSQP v1's nested machine (``_make_body``) in three
+   configurations of the bench's parameters (the monotone Armijo line search of
+   ``DGSQP_BENCH_NMLS=0``, the nested watchdog, damped BFGS): one iteration on the first
+   16 bench games, the card in float32 against the CPU in float64 (the iterate within
+   ``STEP_RTOL``); and the host ``solve`` with game parameters of a parameterised
+   integrator game, card against CPU in float64.  It runs while the children below
+   finish.
+18. ``nested_path`` and ``diagnose_path``, in a fourth process (``chip_smoke.py
+   --nested-paths STATUSES``, started right after ``main_path`` with its per-game
+   statuses; alone, without them, it solves the main path's batch first): the bench
+   batch (256 games, float32) on the nested machine in the ``DGSQP_BENCH_NMLS=0``
+   configuration through the nested ``solve_batch_chunked(chunk_iters=8)``, held
+   against the JAX package's float32 record of the same games
+   (``dgsqp_torch/harness/data/nested_reference_f32.json``, per-game agreement
+   reported); then ``scripts/torch_diagnose_failures.py``'s flow on the main path's
+   non-conv_abs games (padded to a power of two), traced for ``DIAG_TRACE_ITERS``
+   iterations through v1's nested body and classified, beside the TPU record
+   ``docs/diagnosis_r2.json`` (reported, not held).  Its log is
+   ``build/chip_smoke_nested.jsonl``; both kernels must launch at n = 100 and 64.
 
 ``kernels`` also holds ``dyn_step.cu`` (the dynamic bicycle's step with its Jacobian and
 second derivatives, all three orders) against its plain version at the paths' points,
@@ -160,6 +183,10 @@ ORACLE_COMPARE = dict(N=25, num_ua=[2, 2], input_scale=[2.1, 0.436, 2.1, 0.436],
 ORACLE_RECORD = dict(converged_a=78, converged_b=68, both_converged=63, match=63,
                      nmse_max=2.926231472253517e-05)
 ORACLE_MATCH_MIN, ORACLE_MCP_CONV_MIN, ORACLE_DGSQP_CONV_MIN = 0.95, 0.40, 0.50
+# the JAX package's per-game statuses of the same games on the CPU in float64 (DGSQP and
+# the MCP; written by tests/test_torch_tooling.py --write-record)
+ORACLE_STATUS_RECORD = Path(__file__).resolve().parent / 'dgsqp_torch' / 'harness' / \
+    'data' / 'oracle_statuses_f64.json'
 # the IBR sweep of the study's warm start: the best response's decisions and polish rows
 IBR_KERNEL_NS = (50, 48)
 # the merge's equilibrium-match study: three unicycles, N=20, n = 3 x 2 x 20 = 120
@@ -228,6 +255,41 @@ RACE_GAME_N = 20
 # the planner's QP: n = game_N * 4 inputs, its polish 56 rows; B = 1
 RACE_KERNEL_NS = (4 * RACE_GAME_N,)
 RACE_CONVERGED = ('conv_abs_tol', 'conv_rel_tol')
+
+# DGSQP v1's nested machine on the bench batch (256 games, N=25, float32, seed 0) in the
+# bench's configuration with DGSQP_BENCH_NMLS=0 (monotone Armijo line search, cold QPs),
+# through the nested solve_batch_chunked (chunks of 8 iterations, fixed layout), held
+# against the JAX package's float32 run of the same configuration on the CPU (the
+# record tests/test_torch_nested.py writes: 19 conv_abs / 220 conv_rel / 17 stalled);
+# float32 plateaus near the tolerance, so most games exit conv_rel, and a rounding flip
+# moves a game between conv_abs and conv_rel: the limits sit below the record's 0.074
+# and 0.934, far above a broken solver, and are not drawn to the port's count
+NESTED_RECORD = Path(__file__).resolve().parent / 'dgsqp_torch' / 'harness' / 'data' / \
+    'nested_reference_f32.json'
+NESTED_ENV = {'DGSQP_BENCH_NMLS': '0'}
+NESTED_CHUNK = 8
+NESTED_CONV_ABS_MIN, NESTED_CONV_ANY_MIN = 0.03, 0.85
+# both kernels at the bench's n = 100 and the polish's 64 rows
+NESTED_KERNEL_NS = (100, 64)
+# nested_parity: one nested iteration of each machine on the first bench games, the
+# card in float32 against the CPU in float64, the iterate within STEP_RTOL; and a host
+# solve with game parameters of a parameterised integrator game, card against CPU, both
+# float64 (the same iterations: rounding only)
+NESTED_PARITY_GAMES = 16
+NESTED_PARITY_CONFIGS = {
+    'armijo': dict(nonmono_ls=False),
+    'watchdog': dict(nonmono_ls=True, execution='nested'),
+    'bfgs': dict(hessian_approximation='bfgs'),
+}
+PARAM_SOLVE_ATOL = 1e-8
+# diagnose_path: the flow of scripts/torch_diagnose_failures.py at its defaults on the
+# main_path's non-conv_abs games (padded to a power of two), traced through v1's nested
+# body with the watchdog for DIAG_TRACE_ITERS iterations; the JAX package's TPU record
+# (docs/diagnosis_r2.json, made at r2's parameters) is reported beside it, not held
+DIAG_TRACE_ITERS = 50
+DIAG_RECORD = dict(status_counts={'conv_abs_tol': 148, 'conv_rel_tol': 68, 'max_it': 26,
+                                  'time_limit': 14},
+                   failure_classes={'stalled': 76, 'infeasible': 32})
 
 # every emitted line also goes to this file (the output's tail is all a caller may see)
 LOG = Path(__file__).resolve().parent / 'build' / 'chip_smoke.jsonl'
@@ -361,7 +423,8 @@ def phase_kernels(device='cuda', shapes=None, time_it=True):
         'chol': [(256, 100, 0), (256, 64, 0), (5, 37, 0), (64, 150, 0),
                  (16, 36, 0), (16, 48, 0), (256, 150, 0), (256, 96, 0), (256, 50, 0),
                  (256, 48, 0), (128, 120, 0), (128, 80, 0), (64, 60, 0), (64, 48, 0),
-                 (64, 90, 0), (64, 64, 0), (1, 80, 0), (1, 56, 0)],
+                 (64, 90, 0), (64, 64, 0), (1, 80, 0), (1, 56, 0), (128, 100, 0),
+                 (128, 64, 0)],
         'cho_solve': [(256, 100, 1), (256, 100, 64), (256, 64, 1), (5, 37, 3), (256, 100, 8),
                       (256, 100, linalg.WARP_PATH_MAX_K), (256, 100, linalg.WARP_PATH_MAX_K + 1),
                       (256, 100, 33), (5, 37, 33), (64, 150, 1), (64, 150, 64),
@@ -369,7 +432,8 @@ def phase_kernels(device='cuda', shapes=None, time_it=True):
                       (256, 150, 1), (256, 150, 96), (256, 96, 1), (256, 50, 1),
                       (256, 50, 48), (256, 48, 1), (128, 120, 1), (128, 120, 80),
                       (128, 80, 1), (64, 60, 1), (64, 60, 48), (64, 48, 1), (64, 90, 1),
-                      (64, 90, 64), (64, 64, 1), (1, 80, 1), (1, 80, 56), (1, 56, 1)]}
+                      (64, 90, 64), (64, 64, 1), (1, 80, 1), (1, 80, 56), (1, 56, 1),
+                      (128, 100, 1), (128, 100, 64), (128, 64, 1)]}
     rows = []
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split('.')[-1]
@@ -628,13 +692,14 @@ def read_launches_by_n():
 
 def phase_bench_path(phase, solver_name, sol, batch, conv_min, conv_any_min, chunk=4,
                      metric='chicane_2agent_solves_per_s', n_dec=None, conv_abs_limit=None,
-                     kernel_ns=(), **kw):
+                     kernel_ns=(), extra=None, **kw):
     """Solve the bench batch with ``sol.solve_batch_chunked(chunk_iters=chunk, **kw)``
     after a warm-up of one chunk on a few games, print the bench's fields and check the
     result.  Every result must be finite; for v2 and the approximate game a game that
     diverged is exempt (it stops with whatever iterate it had).  ``conv_min`` fails the
     phase below it; ``n_dec``, where given, is the decision count the path must run at,
-    and both kernels must have launched at every matrix size of ``kernel_ns``."""
+    and both kernels must have launched at every matrix size of ``kernel_ns``;
+    ``extra(result)``, where given, adds its dict to the line."""
     import numpy as np
     import torch
     from dgsqp_torch.ops import linalg
@@ -715,6 +780,8 @@ def phase_bench_path(phase, solver_name, sol, batch, conv_min, conv_any_min, chu
     if conv_abs_limit is not None:
         line['conv_abs_limit'] = conv_abs_limit
         line['conv_abs_at_or_above_limit'] = conv >= conv_abs_limit
+    if extra is not None:
+        line.update(extra(res))
     emit(line)
     alive = torch.as_tensor((status != DIVERGED) | (not v2_family), device=res.u.device)
     finite = all(bool(torch.isfinite(t[alive]).all()) for t in (res.u, res.l, res.stat,
@@ -807,6 +874,14 @@ def phase_oracle_path():
     rep = gne_compare(dg, mc, **ORACLE_COMPARE)
     conv_dg = float(rep['converged_a'] / ORACLE_GAMES)
     conv_mc = float(rep['converged_b'] / ORACLE_GAMES)
+    jax_cpu = json.loads(ORACLE_STATUS_RECORD.read_text())
+    if (jax_cpu['games'], jax_cpu['seed']) != (ORACLE_GAMES, ORACLE_SEED):
+        raise AssertionError('oracle_path: the status record is not of these games')
+    as_jax = {}
+    for name, res in (('dgsqp', dg), ('mcp', mc)):
+        ref = np.array([int(ch) for ch in jax_cpu['status_string'][name]])
+        as_jax[name] = {'games_as_record': int((res.statuses == ref).sum()),
+                        'games_differing': np.flatnonzero(res.statuses != ref).tolist()}
     emit({'phase': 'oracle_path', 'scenario': sc.name, 'games': ORACLE_GAMES,
           'n_dec': mcp.n_dec, 'n_c': mcp.n_c, 'dtype': 'float64',
           'dgsqp': analyze_results(dg), 'mcp': analyze_results(mc),
@@ -815,6 +890,7 @@ def phase_oracle_path():
           'mcp_iters_p50': float(np.median(mc.iters)), 'mcp_iters_max': int(mc.iters.max()),
           'dgsqp_conv_abs': conv_dg, 'mcp_conv_abs': conv_mc,
           'gne_compare': rep, 'record': ORACLE_RECORD,
+          'statuses_vs_jax_cpu_float64': as_jax,
           'limits': {'match_rate_of_both': ORACLE_MATCH_MIN,
                      'mcp_conv_abs': ORACLE_MCP_CONV_MIN,
                      'dgsqp_conv_abs': ORACLE_DGSQP_CONV_MIN},
@@ -997,15 +1073,16 @@ def phase_merge_path(device='cuda'):
 MERGE_CHILD = '--merge-path'
 DYNAMIC_CHILD = '--dynamic-paths'
 RACE_CHILD = '--race-path'
+NESTED_CHILD = '--nested-paths'
 
 
-def start_child(flag):
+def start_child(flag, *args):
     """Start a path (``merge_path``; ``dynamic_path`` then ``f1_path``) in a process of
     its own, beside the phases that follow: the paths are host-bound (one CPU core each,
     the card idle most of the time), so each runs on another core.  The child counts its
     own launches."""
     here = Path(__file__).resolve()
-    return subprocess.Popen([sys.executable, str(here), flag], cwd=here.parent,
+    return subprocess.Popen([sys.executable, str(here), flag, *args], cwd=here.parent,
                             stdout=subprocess.PIPE, text=True)
 
 
@@ -1448,6 +1525,228 @@ def phase_race_path():
     return launches
 
 
+def bench_v1(sc, dtype, device, **overrides):
+    """DGSQP v1 with the bench's parameters (``build_bench_solver``), ``overrides``
+    replacing some: ``nonmono_ls=False`` is the ``DGSQP_BENCH_NMLS=0`` configuration."""
+    import dataclasses
+    from dgsqp_torch.harness.bench_setup import build_bench_solver
+    from dgsqp_torch.solvers.dgsqp import DGSQP
+    _, base = build_bench_solver(horizon=sc.N, scenario=sc, dtype=dtype, device=device)
+    return DGSQP(sc.joint_model, sc.costs, sc.agent_constraints, sc.shared_constraints,
+                 sc.bounds, dataclasses.replace(base.params, **overrides),
+                 print_method=None, dtype=dtype, device=device)
+
+
+def param_game_solver(device):
+    """DGSQP v1 (default parameters: the nested machine) on a two-agent integrator game
+    whose terminal costs take a game parameter P (``P * x_a``), float64."""
+    import torch
+    from dgsqp_torch.dynamics import DynamicsConfig, IntegratorModel, MultiAgentDynamicsModel
+    from dgsqp_torch.solvers.dgsqp import DGSQP
+    from dgsqp_torch.solvers.solver_types import DGSQPParams
+    from dgsqp_torch.types import VehicleState
+    N, dt = 5, 0.1
+    joint = MultiAgentDynamicsModel(0.0, [IntegratorModel(0.0, DynamicsConfig(dt=dt)),
+                                          IntegratorModel(0.0, DynamicsConfig(dt=dt))])
+
+    def term(a):
+        return lambda x, P: (0.5 * (x[..., a] - 1.0) ** 2 + 0.3 * x[..., 0] * x[..., 1]
+                             + torch.tanh(2.0 * (x[..., a] - x[..., 1 - a])) + P * x[..., a])
+    stage = lambda x, u, um: 0.5 * u[..., 0] ** 2
+    ub, lb = VehicleState(), VehicleState()
+    ub.v.v_long, ub.u.u_a = float('inf'), 5.0
+    lb.v.v_long, lb.u.u_a = -float('inf'), -5.0
+    return DGSQP(joint, [(stage, term(0)), (stage, term(1))], [None, None], None,
+                 {'ub': [ub, ub.copy()], 'lb': [lb, lb.copy()]},
+                 DGSQPParams(N=N, dt=dt, reg=1e-3, p_tol=1e-8, d_tol=1e-8),
+                 print_method=None, dtype=torch.float64, device=device)
+
+
+def phase_nested_parity(sc, batch):
+    """``nested_parity``: one iteration of the nested machine (monotone Armijo, the
+    watchdog, damped BFGS) on the first bench games, the card in float32 against the
+    CPU in float64 (the iterate within ``STEP_RTOL``; the step, the duals and the
+    counts are reported); and the host ``solve`` with game parameters on the card
+    against the CPU (float64: the same message, iterations and QP solves, the solution
+    within ``PARAM_SOLVE_ATOL``)."""
+    import numpy as np
+    import torch
+    from dgsqp_torch.types import VehicleState
+    args = [a[:NESTED_PARITY_GAMES] for a in batch]
+    rows, bad = {}, []
+    for name, over in NESTED_PARITY_CONFIGS.items():
+        runs = {}
+        for dev, dtype in (('cuda', torch.float32), ('cpu', torch.float64)):
+            sol = bench_v1(sc, dtype, dev, **over)
+            if sol._use_flat():
+                raise AssertionError(f'nested_parity {name}: the flat machine was chosen')
+            u0, l0, x0, up = (a.detach().to(dev, dtype) for a in args)
+            t0 = time.time()
+            c0 = sol._init_carry(u0, l0, x0, up)
+            c1 = sol._make_body(x0, up)(c0)
+            if dev == 'cuda':
+                torch.cuda.synchronize()
+            runs[dev] = (c0, c1, time.time() - t0)
+        (d0, d1, d_s), (h0, h1, h_s) = runs['cuda'], runs['cpu']
+        f64 = lambda t: t.to('cpu', torch.float64)
+        diffs = {'u': rel_err(f64(d1.u), h1.u), 'du': rel_err(f64(d1.u - d0.u), h1.u - h0.u),
+                 'l': rel_err(f64(d1.l), h1.l)}
+        same = {f: int((getattr(d1, f).cpu() == getattr(h1, f)).sum())
+                for f in ('status', 'it', 'qp_solves')}
+        rows[name] = {'rel_diff': diffs, 'games_same': same, 'card_s': d_s, 'cpu_s': h_s,
+                      'qp_solves_card': d1.qp_solves.tolist(),
+                      'qp_solves_cpu': h1.qp_solves.tolist()}
+        if not diffs['u'] <= STEP_RTOL or not torch.isfinite(d1.u).all():
+            bad.append(f'{name}: iterate {diffs["u"]:.2e} > {STEP_RTOL:.0e}')
+    rng = np.random.default_rng(5)
+    u_ws = rng.normal(0.0, 1.0, (5, 2))
+    infos = {}
+    for dev in ('cuda', 'cpu'):
+        sol = param_game_solver(dev)
+        sol.set_warm_start(u_ws)
+        infos[dev] = sol.solve([VehicleState(), VehicleState()], 0.3)
+    ic, ih = infos['cuda'], infos['cpu']
+    solve = {k: (ic[k], ih[k]) for k in ('msg', 'num_iters', 'qp_solves')}
+    solve['u_abs_diff'] = float(np.abs(ic['u_sol'] - ih['u_sol']).max())
+    solve['cost_abs_diff'] = float(np.abs(ic['cost'] - ih['cost']).max())
+    emit({'phase': 'nested_parity', 'scenario': sc.name, 'games': NESTED_PARITY_GAMES,
+          'configs': rows, 'param_solve': solve,
+          'tol': {'iterate': STEP_RTOL, 'param_solve_u': PARAM_SOLVE_ATOL},
+          'why': 'f32 on the card vs f64 on the CPU: one iteration\'s QP step is solved '
+                 'to 3e-7 after Ruiz scaling; the parameterised solve is f64 on both'})
+    if any(a != b for a, b in (solve[k] for k in ('msg', 'num_iters', 'qp_solves'))) \
+            or not solve['u_abs_diff'] <= PARAM_SOLVE_ATOL \
+            or ic['msg'] not in ('conv_abs_tol', 'conv_rel_tol'):
+        bad.append(f'parameterised solve: {solve}')
+    if bad:
+        raise AssertionError(f'nested_parity: {bad}')
+    return rows
+
+
+def phase_nested_path():
+    """``nested_path``: the bench batch on DGSQP v1's nested machine (the
+    ``DGSQP_BENCH_NMLS=0`` configuration), float32, at full width, against the JAX
+    package's float32 record of the same games."""
+    import numpy as np
+    import torch
+    from dgsqp_torch.harness.bench_setup import build_bench_batch
+    from dgsqp_torch.harness.scenarios import build_chicane_scenario
+    from dgsqp_torch.solvers.dgsqp import STATUS_MSG
+    rec = json.loads(NESTED_RECORD.read_text())
+    if (rec['games'], rec['seed'], rec['chunk_iters'], rec['env'], rec['dtype'],
+            rec['execution']) != (256, 0, NESTED_CHUNK, NESTED_ENV, 'float32', 'nested'):
+        raise AssertionError('nested_path: the record is not of this configuration')
+    sc = build_chicane_scenario(N=25, theta_deg=45.0)
+    sol = bench_v1(sc, torch.float32, 'cuda', nonmono_ls=False)
+    batch = build_bench_batch(sc, sol, rec['games'], seed=rec['seed'])
+
+    def vs_record(res):
+        host = lambda t: t.cpu().numpy()
+        st, it, qp = host(res.status), host(res.iters), host(res.qp_solves)
+        rs, ri, rq = (np.asarray(rec[k]) for k in ('status', 'iters', 'qp_solves'))
+        flips = {}
+        for a, b in zip(rs[st != rs], st[st != rs]):
+            key = f'{STATUS_MSG[int(a)]}->{STATUS_MSG[int(b)]}'
+            flips[key] = flips.get(key, 0) + 1
+        return {'execution': 'nested', 'record': {k: rec[k] for k in (
+                    'status_counts', 'command', 'package', 'device', 'dtype', 'seconds')},
+                'record_iters_p50': float(np.median(ri)), 'record_iters_max': int(ri.max()),
+                'record_qp_solves_p50': float(np.median(rq)),
+                'qp_solves_p50': float(np.median(qp)), 'qp_solves_max': int(qp.max()),
+                'games_status_as_record': int((st == rs).sum()),
+                'games_iters_as_record': int((it == ri).sum()),
+                'games_qp_solves_as_record': int((qp == rq).sum()),
+                'status_flips_from_record': flips,
+                'limits': {'conv_abs': NESTED_CONV_ABS_MIN, 'conv_any': NESTED_CONV_ANY_MIN}}
+    line = phase_bench_path('nested_path', 'v1_nested', sol, batch, NESTED_CONV_ABS_MIN,
+                            NESTED_CONV_ANY_MIN, chunk=NESTED_CHUNK, n_dec=100,
+                            kernel_ns=NESTED_KERNEL_NS, extra=vs_record)
+    return line['launches']
+
+
+def phase_diagnose_path(main_status: str):
+    """``diagnose_path``: ``scripts/torch_diagnose_failures.py``'s flow at its defaults
+    on the main path's result (``main_status``, one status digit a game): its
+    non-conv_abs games, padded to a power of two, traced through v1's nested body (the
+    bench's parameters: the watchdog) for ``DIAG_TRACE_ITERS`` iterations and
+    classified."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / 'scripts'))
+    from torch_diagnose_failures import LABELS, classify_failures, trace_failures
+    from dgsqp_torch.harness.bench_setup import build_bench_batch, build_bench_solver
+    from dgsqp_torch.solvers.dgsqp import CONV_ABS, RUNNING, STATUS_MSG
+    sc, sol = build_bench_solver(horizon=25, dtype=torch.float32, device='cuda')
+    status = np.array([int(ch) for ch in main_status])
+    batch = build_bench_batch(sc, sol, status.size, seed=0)
+    fail = np.where(status != CONV_ABS)[0]
+    reset_launches()
+    t0 = time.time()
+    pad, res, trace = trace_failures(sol, batch, fail, DIAG_TRACE_ITERS)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches, launches_by_n = read_launches(), read_launches_by_n()
+    p = sol.params
+    report = classify_failures(fail, trace, status, p.p_tol, p.d_tol, STATUS_MSG)
+    # a game whose status is final repeats its row to the end of the trace
+    not_repeated = []
+    for i in range(fail.size):
+        ended = np.flatnonzero(trace['status'][i] != RUNNING)
+        if ended.size:
+            t_end = ended[0]
+            for k in ('status', 'it', 'p_feas', 'comp', 'stat', 'qp_solves'):
+                if not (trace[k][i, t_end:] == trace[k][i, t_end]).all():
+                    not_repeated.append((int(fail[i]), k))
+            if (trace['du_norm'][i, t_end + 1:] != 0).any():
+                not_repeated.append((int(fail[i]), 'du_norm'))
+    end_status = trace['status'][:, -1]
+    emit({'phase': 'diagnose_path', 'batch': int(status.size), 'traced': int(fail.size),
+          'padded_to': int(pad.size), 'trace_iters': DIAG_TRACE_ITERS, 'dtype': 'float32',
+          'seconds': seconds,
+          'main_path_status_counts': {STATUS_MSG[int(s)]: int((status == s).sum())
+                                      for s in np.unique(status)},
+          'failure_classes': report['failure_classes'],
+          'stat_final_percentiles': report['stat_final_percentiles'],
+          'trace_end_status_counts': {STATUS_MSG[int(s)]: int((end_status == s).sum())
+                                      for s in np.unique(end_status)},
+          'record': DIAG_RECORD, 'record_note': 'docs/diagnosis_r2.json, the TPU at r2\'s '
+                                                'parameters: reported, not held',
+          'launches': launches, 'launches_by_n': launches_by_n,
+          'labels': ''.join(report['failures'][int(g)]['label'][0] for g in fail),
+          # the traced body makes the main path's decisions, so a traced game that ends
+          # within the trace mostly ends with its main-path status (float32 flips aside)
+          'games_trace_end_as_main_path': int((end_status == status[fail]).sum()),
+          'rows_not_repeated': not_repeated[:20]})
+    problems = []
+    if pad.size & (pad.size - 1):
+        problems.append(f'the traced batch of {pad.size} is not a power of two')
+    if any(v['label'] not in LABELS for v in report['failures'].values()):
+        problems.append('a failure has no label')
+    if not_repeated:
+        problems.append(f'final rows not repeated: {not_repeated[:5]}')
+    if not all(v > 0 for v in launches.values()):
+        problems.append(f'a kernel was not launched on diagnose_path: {launches}')
+    if not all(np.isfinite(trace[k]).all() for k in ('p_feas', 'comp', 'stat')):
+        problems.append('non-finite trace')
+    if problems:
+        raise AssertionError('diagnose_path: ' + '; '.join(problems))
+    return launches
+
+
+def nested_paths(main_status=None):
+    """The child of ``--nested-paths``: ``nested_path``, then ``diagnose_path`` on the
+    main path's statuses (run alone, it solves the main path's batch itself first)."""
+    if main_status is None:
+        import torch
+        from dgsqp_torch.harness.bench_setup import build_bench_batch, build_bench_solver
+        sc, sol = build_bench_solver(horizon=25, dtype=torch.float32, device='cuda')
+        res = sol.solve_batch_chunked(*build_bench_batch(sc, sol, 256, seed=0),
+                                      chunk_iters=4, compact=False)
+        main_status = ''.join(str(int(s)) for s in res.status.cpu())
+    phase_nested_path()
+    phase_diagnose_path(main_status)
+
+
 def kernel_summary(rows, launches_by_path):
     """The per-kernel line: numbers at the main shape (float32), all shapes beside."""
     meta = {
@@ -1504,34 +1803,39 @@ def main():
     batch = build_bench_batch(sc, sol, 256, seed=0)
     phase_parity(sc, sol, sol_cpu, batch)
     launches = {}
-    launches['main_path'] = phase_bench_path('main_path', 'v1', sol, batch, CONV_ABS_MIN,
-                                             CONV_ANY_MIN, compact=False)['launches']
-    _, sol_v2 = build_bench_solver(horizon=25, solver_name='v2', scenario=sc,
-                                   dtype=torch.float32, device='cuda')
-    launches['v2_path'] = phase_bench_path('v2_path', 'v2', sol_v2, batch, V2_CONV_ABS_MIN,
-                                           V2_CONV_ANY_MIN)['launches']
-    launches['mc_study'] = phase_mc_study()
-
-    sc_ap, sol_ap = build_bench_solver(horizon=25, solver_name='approx',
-                                       dtype=torch.float32, device='cuda')
-    _, sol_ap_cpu = build_bench_solver(horizon=25, solver_name='approx', scenario=sc_ap,
-                                       dtype=torch.float64, device='cpu')
-    batch_ap = build_bench_batch(sc_ap, sol_ap, 256, seed=0)
-    phase_parity(sc_ap, sol_ap, sol_ap_cpu, batch_ap, phase='approx_parity')
-    launches['approx_path'] = phase_bench_path(
-        'approx_path', 'approx', sol_ap, batch_ap, 0.0, APPROX_CONV_ANY_MIN,
-        metric='approx_duel_solves_per_s', n_dec=APPROX_N_DEC,
-        conv_abs_limit=APPROX_CONV_ABS_LIMIT, kernel_ns=APPROX_KERNEL_NS)['launches']
-
-    children = [start_child(MERGE_CHILD), start_child(DYNAMIC_CHILD),
-                start_child(RACE_CHILD)]
+    main_line = phase_bench_path('main_path', 'v1', sol, batch, CONV_ABS_MIN, CONV_ANY_MIN,
+                                 compact=False)
+    launches['main_path'] = main_line['launches']
+    # the nested machine's paths run beside the rest, on the main path's statuses
+    children = [start_child(NESTED_CHILD, main_line['status_string'])]
     try:
+        _, sol_v2 = build_bench_solver(horizon=25, solver_name='v2', scenario=sc,
+                                       dtype=torch.float32, device='cuda')
+        launches['v2_path'] = phase_bench_path('v2_path', 'v2', sol_v2, batch,
+                                               V2_CONV_ABS_MIN, V2_CONV_ANY_MIN)['launches']
+        launches['mc_study'] = phase_mc_study()
+
+        sc_ap, sol_ap = build_bench_solver(horizon=25, solver_name='approx',
+                                           dtype=torch.float32, device='cuda')
+        _, sol_ap_cpu = build_bench_solver(horizon=25, solver_name='approx', scenario=sc_ap,
+                                           dtype=torch.float64, device='cpu')
+        batch_ap = build_bench_batch(sc_ap, sol_ap, 256, seed=0)
+        phase_parity(sc_ap, sol_ap, sol_ap_cpu, batch_ap, phase='approx_parity')
+        launches['approx_path'] = phase_bench_path(
+            'approx_path', 'approx', sol_ap, batch_ap, 0.0, APPROX_CONV_ANY_MIN,
+            metric='approx_duel_solves_per_s', n_dec=APPROX_N_DEC,
+            conv_abs_limit=APPROX_CONV_ABS_LIMIT, kernel_ns=APPROX_KERNEL_NS)['launches']
+
+        children += [start_child(MERGE_CHILD), start_child(DYNAMIC_CHILD),
+                     start_child(RACE_CHILD)]
         sc_or, dg, launches['oracle_path'] = phase_oracle_path()
         launches['ibr_ws'] = phase_ibr_ws(sc, batch)
         phase_algames_path(sc_or, dg)
-        launches.update(finish_child(children[0], ['merge_path']))
-        launches.update(finish_child(children[1], ['dynamic_path', 'f1_path']))
-        launches.update(finish_child(children[2], ['race_path']))
+        phase_nested_parity(sc, batch)
+        launches.update(finish_child(children[1], ['merge_path']))
+        launches.update(finish_child(children[2], ['dynamic_path', 'f1_path']))
+        launches.update(finish_child(children[3], ['race_path']))
+        launches.update(finish_child(children[0], ['nested_path', 'diagnose_path']))
     finally:
         for child in children:
             if child.poll() is None:
@@ -1568,5 +1872,8 @@ if __name__ == '__main__':
         child_process('chip_smoke_dynamic.jsonl', [phase_dynamic_path, phase_f1_path])
     elif sys.argv[1:] == [RACE_CHILD]:
         child_process('chip_smoke_race.jsonl', [phase_race_path])
+    elif sys.argv[1:2] == [NESTED_CHILD] and len(sys.argv) <= 3:
+        child_process('chip_smoke_nested.jsonl',
+                      [lambda: nested_paths(sys.argv[2] if len(sys.argv) == 3 else None)])
     else:
         main()

@@ -10,7 +10,7 @@ bucket.  The carry is a NamedTuple of tensors with a leading batch dimension.
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -22,13 +22,14 @@ def _take(tree, idx):
 def run_chunked_compacted(carry, x0, up, chunk_fn: Callable, *, final_fn: Callable,
                           running_status: int, max_chunks: int, min_bucket: int = 16,
                           can_compact: bool = True, verbose: bool = False,
-                          print_method=print):
+                          print_method=print, history_fn: Optional[Callable] = None):
     """Drive ``chunk_fn(carry, x0, up) -> carry`` to completion.
 
     ``carry.status`` holds each game's status code; ``final_fn(carry, x0, up)`` extracts
     the per-game result NamedTuple.  Returns
     ``(result, history)`` with the result in the original batch order; every history
-    entry records the batch size the chunk ran at.
+    entry records the batch size the chunk ran at, and the fields of
+    ``history_fn(carry)`` where it is given.
     """
     B0 = int(carry.status.shape[0])
     history = []
@@ -39,7 +40,8 @@ def run_chunked_compacted(carry, x0, up, chunk_fn: Callable, *, final_fn: Callab
             carry = chunk_fn(carry, x0, up)
             n_run = int((carry.status == running_status).sum())
             history.append(dict(chunk=i, running=n_run, batch=B0,
-                                wall_s=round(time.time() - t0, 3)))
+                                wall_s=round(time.time() - t0, 3),
+                                **(history_fn(carry) if history_fn else {})))
             if verbose:
                 print_method(f'chunk {i}: {n_run} games still running (fixed layout)')
             if n_run == 0:
@@ -85,7 +87,8 @@ def run_chunked_compacted(carry, x0, up, chunk_fn: Callable, *, final_fn: Callab
         running = (status_h == running_status) & valid_h
         n_run = int(running.sum())
         history.append(dict(chunk=i, running=n_run, batch=int(valid_h.size),
-                            wall_s=round(time.time() - t0, 3)))
+                            wall_s=round(time.time() - t0, 3),
+                            **(history_fn(carry) if history_fn else {})))
         if verbose:
             print_method(f'chunk {i}: {n_run} games still running (batch {valid_h.size})')
         if n_run == 0:

@@ -13,7 +13,7 @@ N=15, 64 games of the study's draw, DGSQP v2 with the study script's parameters)
   forward-over-reverse AD), the convexified QP (Newton-Schulz + ``solve_qp``, with the
   Cholesky kernels), a line search of all trials (``merit_terms`` on batch x 20 for v1,
   batch x 50 for v2, batch x 10 for approx), and the first-derivative ``evaluate``
-  (``finalize`` of v1; the full-step trial of a v2 m-step);
+  (``_finalize`` of v1; the full-step trial of a v2 m-step);
 * ``evaluate`` and ``evaluate_dp`` (the stage-wise derivatives), each with and without
   the Hessian: the time of a call and the CUDA launches of one (``torch.profiler``);
 * whole rounds from the initial carry (v1: the flat machine; v2: with the number of

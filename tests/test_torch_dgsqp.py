@@ -90,9 +90,9 @@ def test_perturbed_batch_exercises_the_watchdog(jax_bench, port):
     modes = set()
     round_fn = solver._round
 
-    def spy(c, x0, up):
+    def spy(c, x0, up, P=None):
         modes.update(c.mode[c.status == 0].tolist())
-        return round_fn(c, x0, up)
+        return round_fn(c, x0, up, P)
 
     solver._round = spy
     try:

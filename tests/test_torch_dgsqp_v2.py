@@ -5,7 +5,7 @@ package's ``DGSQPV2`` and of the port's, for the cases of that file (NMS with a 
 with a slow ``reg_decay``, ``reg=1e1``, ``nms=False``, the ``sum_obj_l1`` merit): the
 same ``msg``, ``num_iters`` and ``qp_solves``, and ``u_sol``/``l_sol`` within 1e-8
 (absolute).  DGSQP v1's ``solve`` and ``step`` on the flat machine (``nonmono_ls=True``;
-the default parameters pick the nested machine, which is not ported and raises) agree
+the default parameters pick the nested machine, held in ``test_torch_nested.py``) agree
 with the JAX package's in the same way, and ``step`` leaves the same shifted warm start
 (1e-8).  The batch, chicane, indefinite-QP and approximate-hook cases are in
 ``test_torch_dgsqp_v2_batch.py``.
@@ -100,13 +100,16 @@ def test_v1_solve_and_step_match_jax_on_the_flat_machine():
 
 
 def test_unported_machines_raise():
+    """The default parameters (the nested machine) build and solve; sharding a study
+    over several GPUs is still not ported and raises."""
+    from dgsqp_torch.harness.mc_study import run_mc_study
+    from dgsqp_torch.harness.scenarios import build_chicane_scenario
     joint, costs, shared, bounds = torch_game()
-    with pytest.raises(NotImplementedError):        # default parameters: nested machine
-        DGSQP(joint, costs, [None, None], shared, bounds, DGSQPParams(N=N, dt=DT),
-              print_method=None, dtype=torch.float64, device='cpu')
-    v1 = DGSQP(joint, costs, [None, None], shared, bounds,
-               DGSQPParams(N=N, dt=DT, nonmono_ls=True), print_method=None,
-               dtype=torch.float64, device='cpu')
-    z = torch.zeros(1, 1, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):        # traces the nested machine
-        v1.solve_batch_traced(z, z, z, z)
+    v1 = DGSQP(joint, costs, [None, None], shared, bounds, DGSQPParams(N=N, dt=DT),
+               print_method=None, dtype=torch.float64, device='cpu')
+    assert not v1._use_flat()
+    info = v1.solve([VehicleState(), VehicleState()])
+    assert info['msg'] in ('conv_abs_tol', 'conv_rel_tol')
+    with pytest.raises(NotImplementedError):
+        run_mc_study(build_chicane_scenario(N=3), num_samples=2, n_devices=2,
+                     dtype=torch.float64, device='cpu')

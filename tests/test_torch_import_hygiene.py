@@ -2,7 +2,7 @@
 ``scripts/torch_*.py`` script) imports JAX or anything of the JAX package ``dgsqp_tpu``,
 or names a data file under ``dgsqp_tpu/`` or a reference checkout: the saved tracks and
 racelines it loads are its own copies, and loading them opens no file of the JAX
-package."""
+package.  The port's shell scripts call only the port's scripts."""
 import pathlib
 import re
 import subprocess
@@ -43,12 +43,16 @@ def test_importing_every_module_loads_no_jax():
                 'ops.dynamics', 'harness.dynamic_study', 'harness.f1_study',
                 'tracks.track_lib', 'solvers.ocp_qp', 'solvers.ca_ltv_mpc', 'solvers.pid',
                 'solvers.abstract_solver', 'dynamics.simulator', 'harness.race',
-                'harness.plotting'):
+                'harness.plotting', 'utils.profiling'):
         assert f'dgsqp_torch.{new}' in mods
     scripts = [p.stem for p in SCRIPTS]
     assert 'torch_monte_carlo_main' in scripts and 'torch_profile_round' in scripts
     assert 'torch_gne_compare_main' in scripts and 'torch_f1_study_main' in scripts
     assert 'torch_race_main' in scripts
+    for new in ('torch_diagnose_failures', 'torch_diagnose_approx',
+                'torch_stalled_oracle_crosstab', 'torch_merge_oracles', 'torch_mcp_tune',
+                'torch_regularization_study_main', 'torch_analyze_regularization'):
+        assert new in scripts, new
     code = ('import importlib, sys\n'
             f'for m in {mods!r}:\n'
             '    importlib.import_module(m)\n'
@@ -125,9 +129,16 @@ def test_new_entry_points_default_to_the_card():
         params = inspect.signature(fn).parameters
         assert params['device'].default == 'cuda', fn
         assert 'dtype' in params, fn
-    for name in ('torch_monte_carlo_main', 'torch_f1_study_main'):
+    from dgsqp_torch.solvers.dgsqp import DGSQP
+    params = inspect.signature(DGSQP.__init__).parameters
+    assert params['device'].default == 'cuda' and 'dtype' in params
+    for name in ('torch_monte_carlo_main', 'torch_f1_study_main', 'torch_diagnose_failures',
+                 'torch_diagnose_approx', 'torch_stalled_oracle_crosstab',
+                 'torch_regularization_study_main'):
         script = (ROOT / 'scripts' / f'{name}.py').read_text()
         assert "'--device', default='cuda'" in script and "'--dtype'" in script, name
+    assert "os.environ.get('DGSQP_DEVICE', 'cuda')" in \
+        (ROOT / 'scripts' / 'torch_mcp_tune.py').read_text()
 
 
 def test_mpc_and_race_entry_points_default_to_the_card():
@@ -165,3 +176,16 @@ def test_race_stack_opens_only_the_ports_files():
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_shell_scripts_call_only_the_ports_scripts():
+    """``scripts/torch_*.sh`` run only ``scripts/torch_*.py`` scripts that exist."""
+    shells = sorted((ROOT / 'scripts').glob('torch_*.sh'))
+    assert {p.name for p in shells} >= {'torch_run_regularization_study.sh',
+                                        'torch_run_ablation_study.sh'}
+    for path in shells:
+        called = re.findall(r'scripts/([A-Za-z0-9_]+)\.py', path.read_text())
+        assert called, path
+        for name in called:
+            assert name.startswith('torch_') and (ROOT / 'scripts' / f'{name}.py').exists(), \
+                (path.name, name)
