@@ -118,6 +118,21 @@ Phases, each printing one line on stdout:
    ``docs/diagnosis_r2.json`` (reported, not held).  Its log is
    ``build/chip_smoke_nested.jsonl``; both kernels must launch at n = 100 and 64.
 
+19. ``sharded_path``, in a fifth process (``chip_smoke.py --sharded-path STATUSES``,
+   started right after ``main_path`` beside the nested child when the machine has
+   ``SHARDED_MIN_CORES`` cores, else after the other children; alone, it solves the
+   main path's batch first): the main path's batch and solver (256 games, N=25, n=100,
+   float32, DGSQP v1) over ``max(2, device_count)`` ranks (``spawn_ranks``: two ranks
+   share the one card over ``gloo``), solved with ``solve_batch_chunked(chunk_iters=4)``
+   and compaction across the ranks; held: no game running, both kernels launched on
+   every rank at n = 100 and 64, every bucket a multiple of the world size, conv_abs and
+   conv_abs + conv_rel at ``main_path``'s limits, ``SHARDED_MIN_AGREE`` games with
+   ``main_path``'s status; then ``scripts/torch_monte_carlo_main.py`` on ``mc_study``'s
+   scenario and sizes, on one device and with ``--devices``: the run on ranks writes the
+   outputs the one device writes, under the same names, with the same per-game
+   statuses.  Its log is
+   ``build/chip_smoke_sharded.jsonl``.
+
 ``kernels`` also holds ``dyn_step.cu`` (the dynamic bicycle's step with its Jacobian and
 second derivatives, all three orders) against its plain version at the paths' points,
 and at the race's (one point at the model's and at the plant's step, 20 points at order
@@ -127,7 +142,7 @@ The launch counts are set to 0 just before each path and read just after; each p
 that runs the kernels fails if one was not launched in it.  Then one JSON line of
 per-kernel numbers (``launches`` is the count of ``v2_path`` for the linear-algebra
 kernels and of ``dynamic_path`` for ``dyn_step``, ``launches_by_path`` has every path,
-``race_path`` among them),
+``race_path`` and ``sharded_path`` (summed over its ranks) among them),
 and last ``{"ok": true, "device": ...}``.  Every line also goes to
 ``build/chip_smoke.jsonl`` (the kernels line alone is longer than a caller may see of
 the output's tail).
@@ -135,6 +150,7 @@ Any failed check raises and the script exits non-zero; without a card it exits
 non-zero before printing any result.
 """
 import json
+import os
 import subprocess
 import sys
 import time
@@ -290,6 +306,25 @@ DIAG_TRACE_ITERS = 50
 DIAG_RECORD = dict(status_counts={'conv_abs_tol': 148, 'conv_rel_tol': 68, 'max_it': 26,
                                   'time_limit': 14},
                    failure_classes={'stalled': 76, 'infeasible': 32})
+
+# sharded_path: the main path's batch and solver over max(2, device_count) ranks, a
+# process a rank (two ranks share the one card over gloo), with compaction across ranks
+# in chunks of SHARDED_CHUNK rounds; float32 rounding can flip a game between a
+# compacted and an uncompacted run, so SHARDED_MIN_AGREE of the 256 games must end with
+# main_path's status.  The study check runs scripts/torch_monte_carlo_main.py on
+# mc_study's scenario and sizes (the script's own parameters otherwise) on one device
+# and over the ranks, and holds the two runs' per-game statuses equal.
+SHARDED_CHUNK = 4
+SHARDED_MIN_AGREE = 243
+SHARDED_TIMEOUT_S = 600
+SHARDED_STUDY_ARGS = ['--scenario', 'agents', '--agents', str(MC_AGENTS), '--N',
+                      str(MC_HORIZON), '--theta', '90', '--n', str(MC_SAMPLES),
+                      '--solver', 'dgsqp_v2',
+                      '--sqp_iters', '30', '--reg_init', '1e-3', '--reg_decay', '1.0',
+                      '--nms_frequency', '5', '--nms_memory', '5']
+# the ranks beside the parent and the nested child: the sharded child runs beside them
+# when the machine has this many cores, else after the other children
+SHARDED_MIN_CORES = 6
 
 # every emitted line also goes to this file (the output's tail is all a caller may see)
 LOG = Path(__file__).resolve().parent / 'build' / 'chip_smoke.jsonl'
@@ -1074,6 +1109,7 @@ MERGE_CHILD = '--merge-path'
 DYNAMIC_CHILD = '--dynamic-paths'
 RACE_CHILD = '--race-path'
 NESTED_CHILD = '--nested-paths'
+SHARDED_CHILD = '--sharded-path'
 
 
 def start_child(flag, *args):
@@ -1733,18 +1769,199 @@ def phase_diagnose_path(main_status: str):
     return launches
 
 
+def main_path_statuses() -> str:
+    """The main path's per-game statuses, for a child run alone: the bench batch solved
+    as ``main_path`` solves it."""
+    import torch
+    from dgsqp_torch.harness.bench_setup import build_bench_batch, build_bench_solver
+    sc, sol = build_bench_solver(horizon=25, dtype=torch.float32, device='cuda')
+    res = sol.solve_batch_chunked(*build_bench_batch(sc, sol, 256, seed=0),
+                                  chunk_iters=4, compact=False)
+    return ''.join(str(int(s)) for s in res.status.cpu())
+
+
 def nested_paths(main_status=None):
     """The child of ``--nested-paths``: ``nested_path``, then ``diagnose_path`` on the
     main path's statuses (run alone, it solves the main path's batch itself first)."""
     if main_status is None:
-        import torch
-        from dgsqp_torch.harness.bench_setup import build_bench_batch, build_bench_solver
-        sc, sol = build_bench_solver(horizon=25, dtype=torch.float32, device='cuda')
-        res = sol.solve_batch_chunked(*build_bench_batch(sc, sol, 256, seed=0),
-                                      chunk_iters=4, compact=False)
-        main_status = ''.join(str(int(s)) for s in res.status.cpu())
+        main_status = main_path_statuses()
     phase_nested_path()
     phase_diagnose_path(main_status)
+
+
+def sharded_ranks():
+    """(ranks, devices): a rank a card, at least two; two ranks share the one card."""
+    import torch
+    k = max(2, torch.cuda.device_count())
+    return k, (None if torch.cuda.device_count() >= k else ['cuda:0'] * k)
+
+
+def sharded_rank(mesh, chunk):
+    """One rank of ``sharded_path``: the bench batch and solver on this rank's device, a
+    warm-up chunk on a few of its games, then its block solved with compaction across
+    the ranks.  Returns host values."""
+    import torch
+    from dgsqp_torch.harness.bench_setup import build_bench_batch, build_bench_solver
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sc, sol = build_bench_solver(horizon=25, dtype=torch.float32, device=str(mesh.device))
+    lo, hi = mesh.block(256)
+    block = [a[lo:hi] for a in build_bench_batch(sc, sol, 256, seed=0)]
+    t0 = time.time()
+    sol.solve_batch_chunked(*(a[:WARMUP_GAMES] for a in block), chunk_iters=chunk,
+                            max_chunks=1)
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
+    reset_launches()
+    t0 = time.time()
+    res = sol.solve_batch_chunked(*block, chunk_iters=chunk, mesh=mesh)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (res.u, res.l, res.stat, res.p_feas, res.comp))
+    return dict(rank=mesh.rank, device=str(mesh.device), devices=list(mesh.devices),
+                backend=mesh.backend, world_size=mesh.size, n_dec=sol.n_dec,
+                p_tol=sol.params.p_tol, d_tol=sol.params.d_tol, seconds=seconds,
+                warmup_s=warmup_s, launches=read_launches(),
+                launches_by_n=read_launches_by_n(), finite=finite,
+                status=''.join(str(int(s)) for s in res.status.cpu()),
+                history=sol.last_chunk_history)
+
+
+def sharded_study(k, devices):
+    """``scripts/torch_monte_carlo_main.py`` at ``SHARDED_STUDY_ARGS``, on one device
+    (in this process) and then over k ranks: for each run its status string, the names
+    of its outputs, its seconds and its provenance."""
+    import importlib.util
+    import pickle
+    here = Path(__file__).resolve().parent
+    path = here / 'scripts' / 'torch_monte_carlo_main.py'
+    spec = importlib.util.spec_from_file_location('torch_monte_carlo_main', path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    runs = {}
+    for name, extra in (('one_device', []),
+                        ('ranks', ['--devices', str(k), '--device',
+                                   'cuda' if devices is None else ','.join(devices),
+                                   '--rank_timeout', str(SHARDED_TIMEOUT_S)])):
+        target = here / 'build' / f'sharded_study_{name}'
+        if target.exists():
+            for f in target.iterdir():
+                f.unlink()
+        argv = SHARDED_STUDY_ARGS + ['--out', str(target)] + extra
+        t0 = time.time()
+        if name == 'one_device':
+            script.run_study(argv)
+        else:
+            proc = subprocess.run([sys.executable, str(path), *argv], cwd=here,
+                                  capture_output=True, text=True,
+                                  timeout=SHARDED_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f'sharded_path: the study script failed:\n'
+                                     f'{proc.stderr[-3000:]}')
+        seconds = time.time() - t0
+        names = sorted(f.name for f in target.iterdir())
+        pkl = [n for n in names if n.endswith('.pkl')]
+        if len(pkl) != 1:
+            raise AssertionError(f'sharded_path: the study ({name}) wrote {names}')
+        with open(target / pkl[0], 'rb') as f:
+            res = pickle.load(f)
+        runs[name] = dict(status_string=''.join(str(int(s)) for s in res.statuses),
+                          outputs=names, seconds=seconds,
+                          world_size=res.provenance.get('world_size'),
+                          backend=res.provenance.get('backend'),
+                          rank_devices=res.provenance.get('rank_devices'))
+    return runs
+
+
+def phase_sharded_path(main_status: str, concurrent: bool):
+    """``sharded_path``: the main path's batch solved over ranks with compaction across
+    them, held against ``main_path``'s statuses; then the study script on ranks."""
+    import numpy as np
+    from dgsqp_torch.parallel.mesh import spawn_ranks
+    from dgsqp_torch.solvers.dgsqp import CONV_ABS, CONV_REL, RUNNING, STATUS_MSG
+    k, devices = sharded_ranks()
+    t0 = time.time()
+    ranks = spawn_ranks(sharded_rank, k, SHARDED_CHUNK, devices=devices,
+                        timeout_s=SHARDED_TIMEOUT_S)
+    wall = time.time() - t0
+    status = np.array([int(c) for c in ranks[0]['status']])
+    main = np.array([int(c) for c in main_status])
+    conv = float(np.isin(status, (CONV_ABS,)).mean())
+    conv_any = float(np.isin(status, (CONV_ABS, CONV_REL)).mean())
+    agree = int((status == main).sum())
+    history = ranks[0]['history']
+    buckets = [h['batch'] for h in history]
+    solve_s = max(r['seconds'] for r in ranks)
+    study = sharded_study(k, devices)
+    launches = {name: sum(r['launches'][name] for r in ranks)
+                for name in ranks[0]['launches']}
+    line = {
+        'phase': 'sharded_path', 'metric': 'chicane_2agent_solves_per_s',
+        'value': len(status) / solve_s, 'unit': 'solves/s', 'solve_s': solve_s,
+        'spawn_to_join_s': wall, 'warmup_s': max(r['warmup_s'] for r in ranks),
+        'world_size': k, 'backend': ranks[0]['backend'],
+        'rank_devices': ranks[0]['devices'], 'concurrent': concurrent,
+        'cpu_count': os.cpu_count(), 'chunk_iters': SHARDED_CHUNK,
+        'convergence_rate': conv, 'convergence_rate_incl_rel': conv_any,
+        'limits': {'conv_abs': CONV_ABS_MIN, 'conv_any': CONV_ANY_MIN,
+                   'agree_with_main_path': SHARDED_MIN_AGREE},
+        'status_counts': {STATUS_MSG.get(int(s), str(s)): int((status == s).sum())
+                          for s in np.unique(status)},
+        'agree_with_main_path': agree, 'chunks': len(history), 'chunk_batch': buckets,
+        'running_after_chunk': [h['running'] for h in history],
+        'chunk_wall_s': [h['wall_s'] for h in history],
+        'compact_bytes_by_rank': [[h.get('compact_bytes', 0) for h in r['history']]
+                                  for r in ranks],
+        'compact_s_rank0': [h['compact_s'] for h in history if 'compact_s' in h],
+        'rank_solve_s': [r['seconds'] for r in ranks],
+        'launches': launches, 'launches_by_rank': [r['launches'] for r in ranks],
+        'launches_by_n_by_rank': [r['launches_by_n'] for r in ranks],
+        'status_string': ranks[0]['status'],
+        'study': study,
+    }
+    emit(line)
+    problems = []
+    if any(r['status'] != ranks[0]['status'] or [h['batch'] for h in r['history']] != buckets
+           for r in ranks):
+        problems.append('the ranks returned different results')
+    if (status == RUNNING).any():
+        problems.append('games still running')
+    if not all(r['finite'] for r in ranks):
+        problems.append('non-finite results')
+    for r in ranks:
+        by_n = r['launches_by_n']
+        missing = [(name, n) for name in by_n for n in NESTED_KERNEL_NS
+                   if not by_n[name].get(n)]
+        if missing or not all(v > 0 for v in r['launches'].values()):
+            problems.append(f"rank {r['rank']} did not launch {missing or r['launches']}")
+    if any(b % k for b in buckets):
+        problems.append(f'a bucket is not a multiple of {k}: {buckets}')
+    if conv < CONV_ABS_MIN or conv_any < CONV_ANY_MIN:
+        problems.append(f'convergence {conv:.3f}/{conv_any:.3f} below '
+                        f'{CONV_ABS_MIN}/{CONV_ANY_MIN}')
+    if agree < SHARDED_MIN_AGREE:
+        problems.append(f'{agree} games as main_path, fewer than {SHARDED_MIN_AGREE}')
+    one, on_ranks = study['one_device'], study['ranks']
+    if on_ranks['outputs'] != one['outputs']:
+        problems.append(f"the study on {k} ranks wrote {on_ranks['outputs']}, on one "
+                        f"device {one['outputs']}")
+    if on_ranks['status_string'] != one['status_string']:
+        problems.append(f"the study on {k} ranks ({on_ranks['status_string']}) differs "
+                        f"from one device ({one['status_string']})")
+    if on_ranks['world_size'] != k:
+        problems.append('the study on ranks does not name its ranks')
+    if problems:
+        raise AssertionError('sharded_path: ' + '; '.join(problems))
+    return line
+
+
+def sharded_path(main_status=None):
+    """The child of ``--sharded-path``: ``sharded_path`` on the main path's statuses
+    (run alone, it solves the main path's batch itself first)."""
+    if main_status is None:
+        main_status = main_path_statuses()
+    phase_sharded_path(main_status, concurrent=os.cpu_count() >= SHARDED_MIN_CORES)
 
 
 def kernel_summary(rows, launches_by_path):
@@ -1806,8 +2023,12 @@ def main():
     main_line = phase_bench_path('main_path', 'v1', sol, batch, CONV_ABS_MIN, CONV_ANY_MIN,
                                  compact=False)
     launches['main_path'] = main_line['launches']
-    # the nested machine's paths run beside the rest, on the main path's statuses
+    # the nested machine's paths run beside the rest, on the main path's statuses; the
+    # sharded path too where the cores allow it (else after the other children)
     children = [start_child(NESTED_CHILD, main_line['status_string'])]
+    sharded_now = os.cpu_count() >= SHARDED_MIN_CORES
+    sharded_child = start_child(SHARDED_CHILD, main_line['status_string']) \
+        if sharded_now else None
     try:
         _, sol_v2 = build_bench_solver(horizon=25, solver_name='v2', scenario=sc,
                                        dtype=torch.float32, device='cuda')
@@ -1836,9 +2057,12 @@ def main():
         launches.update(finish_child(children[2], ['dynamic_path', 'f1_path']))
         launches.update(finish_child(children[3], ['race_path']))
         launches.update(finish_child(children[0], ['nested_path', 'diagnose_path']))
+        if sharded_child is None:
+            sharded_child = start_child(SHARDED_CHILD, main_line['status_string'])
+        launches.update(finish_child(sharded_child, ['sharded_path']))
     finally:
-        for child in children:
-            if child.poll() is None:
+        for child in children + [sharded_child]:
+            if child is not None and child.poll() is None:
                 child.kill()
                 child.wait()
     phase_dp_parity({'bench': (sol.problem, tuple(a[:DP_GAMES] for a in batch)),
@@ -1875,5 +2099,8 @@ if __name__ == '__main__':
     elif sys.argv[1:2] == [NESTED_CHILD] and len(sys.argv) <= 3:
         child_process('chip_smoke_nested.jsonl',
                       [lambda: nested_paths(sys.argv[2] if len(sys.argv) == 3 else None)])
+    elif sys.argv[1:2] == [SHARDED_CHILD] and len(sys.argv) <= 3:
+        child_process('chip_smoke_sharded.jsonl',
+                      [lambda: sharded_path(sys.argv[2] if len(sys.argv) == 3 else None)])
     else:
         main()

@@ -1,11 +1,10 @@
 """Monte-Carlo study runner, ported from ``dgsqp_tpu/harness/mc_study.py``.
 
 One call samples all initial conditions, warm-starts them as one batch and solves the
-whole batch in lockstep on one device.  ``analyze_results`` gives the study's statistics
-(success rate, iteration counts over converged samples, status counts).
-
-Every scenario of the JAX package's studies is sampled here; sharding the batch over
-several GPUs (``n_devices`` other than ``None``/1) raises ``NotImplementedError``.
+whole batch in lockstep on one device, or, with ``n_devices=k``, sharded over the k
+ranks of a rank group (``dgsqp_torch.parallel``).  ``analyze_results`` gives the
+study's statistics (success rate, iteration counts over converged samples, status
+counts).
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ from dgsqp_torch.harness.samplers import (sample_agents_initial_conditions,
                                           sample_duel_initial_conditions,
                                           sample_merge_initial_conditions)
 from dgsqp_torch.harness.warm_start import seed_virtual_rate_prev
+from dgsqp_torch.parallel.mesh import games_mesh, pad_to_multiple, shard_batch
 from dgsqp_torch.solvers.dgsqp import CONV_ABS, CONV_REL, DGSQP, STATUS_MSG
 from dgsqp_torch.solvers.solver_types import DGSQPParams
 
@@ -189,10 +189,24 @@ def run_mc_study(scenario, solver_params=None, num_samples: int = 200, seed: int
 
     A solver with no ``solve_batch_chunked`` (the MCP oracle) runs its whole batched
     solve (``solve_batch``); its warm-up is one iteration on a few games.
+
+    ``n_devices=k`` (k > 1) shards the study over the k ranks of the rank group this
+    process belongs to (``spawn_ranks`` or ``init_distributed``; see
+    ``dgsqp_torch.parallel``), SPMD: every rank makes the same call, on its rank's device.
+    Every rank samples the same full batch (the sampler's PID warm start decides which
+    draws it accepts) and pads it to a multiple of k by repeating the last game; each
+    rank then warm-starts (IBR, the dual warm start, a DGSQP prefix) and solves its own
+    block, the chunked solvers compacting across ranks, and every rank returns the
+    results of all games in the original order.  A game's result does not depend on
+    the partition.
     """
+    mesh = None
     if n_devices not in (None, 1):
-        raise NotImplementedError('sharding a study over several GPUs is not ported '
-                                  '(ROADMAP queue 1, item 8: multi-GPU study sharding)')
+        mesh = games_mesh(n_devices)
+        device = mesh.device
+        if solver is not None and torch.device(solver.device) != mesh.device:
+            raise ValueError(f'the solver is on {solver.device}, this rank on '
+                             f'{mesh.device}')
     if solver is None:
         if solver_params is None:
             solver_params = DGSQPParams(N=scenario.N, dt=scenario.dt, reg=1e-3,
@@ -206,10 +220,15 @@ def run_mc_study(scenario, solver_params=None, num_samples: int = 200, seed: int
     dtype, device = solver.dtype, solver.device
 
     x0_np, u_ws, _, _ = _sample(scenario, num_samples, seed, dtype, device)
-    u_ws = torch.as_tensor(u_ws, dtype=dtype, device=device)
+    if mesh is None:
+        u_ws = torch.as_tensor(u_ws, dtype=dtype, device=device)
+        x0 = torch.as_tensor(x0_np, dtype=dtype, device=device)
+    else:
+        # this rank's block of the batch padded to a multiple of the ranks
+        u_ws = shard_batch(mesh, pad_to_multiple(np.asarray(u_ws), mesh.size)[0]).to(dtype)
+        x0 = shard_batch(mesh, pad_to_multiple(np.asarray(x0_np), mesh.size)[0]).to(dtype)
     u0 = solver.problem.stage_to_u(u_ws)
-    x0 = torch.as_tensor(x0_np, dtype=dtype, device=device)
-    up = torch.zeros(num_samples, scenario.joint_model.n_u, dtype=dtype, device=device)
+    up = torch.zeros(u_ws.shape[0], scenario.joint_model.n_u, dtype=dtype, device=device)
     up = seed_virtual_rate_prev(up, u_ws[:, 0, :], scenario.joint_model)
     if ibr_ws:
         from dgsqp_torch.solvers.ibr import IBR
@@ -228,20 +247,28 @@ def run_mc_study(scenario, solver_params=None, num_samples: int = 200, seed: int
         pre = DGSQP(scenario.joint_model, scenario.costs, scenario.agent_constraints,
                     scenario.shared_constraints, scenario.bounds, pre_params,
                     print_method=None, dtype=dtype, device=device)
-        pre_res = pre.solve_batch_chunked(u0, l0, x0, up)
+        pre_res = pre.solve_batch_chunked(u0, l0, x0, up, mesh=mesh)
         u0 = pre_res.u
         l0 = torch.clamp(pre_res.l, min=0.0)
+        if mesh is not None:
+            # the prefix returns every rank's games: keep this rank's block
+            lo, hi = mesh.block(pre_res.u.shape[0])
+            u0, l0 = u0[lo:hi], l0[lo:hi]
 
     sync = torch.cuda.synchronize if device.type == 'cuda' else (lambda: None)
-    w = min(num_samples, _WARMUP_GAMES)
+    w = min(u0.shape[0], _WARMUP_GAMES)
     head = (u0[:w], l0[:w], x0[:w], up[:w])
     if hasattr(solver, 'solve_batch_chunked'):
         warm_up = lambda: solver.solve_batch_chunked(*head, chunk_iters=_WARMUP_ITERS,
                                                      max_chunks=1)
-        batch_solve = lambda: solver.solve_batch_chunked(u0, l0, x0, up)
+        batch_solve = lambda: solver.solve_batch_chunked(u0, l0, x0, up, mesh=mesh)
     else:
         warm_up = lambda: solver.solve_batch(*head, max_iters=_WARMUP_ITERS)
-        batch_solve = lambda: solver.solve_batch(u0, l0, x0, up)
+        if mesh is None:
+            batch_solve = lambda: solver.solve_batch(u0, l0, x0, up)
+        else:
+            # sharded_batch_solve's gather; the blocks are this rank's already
+            batch_solve = lambda: mesh.all_gather_rows(solver.solve_batch(u0, l0, x0, up))
     t0 = time.time()
     warm_up()
     sync()
@@ -252,7 +279,11 @@ def run_mc_study(scenario, solver_params=None, num_samples: int = 200, seed: int
     sync()
     solve_time = time.time() - t0
 
-    host = lambda t: t.cpu().numpy()
+    host = lambda t: t[:num_samples].cpu().numpy()
+    extra = dict(ibr_ws=bool(ibr_ws), dgsqp_ws_iters=int(dgsqp_ws_iters))
+    if mesh is not None:
+        extra.update(world_size=mesh.size, backend=mesh.backend,
+                     rank_devices=list(mesh.devices))
     return MCResults(scenario=scenario.name, solver=type(solver).__name__,
                      num_samples=num_samples,
                      statuses=host(res.status), iters=host(res.iters),
@@ -261,10 +292,7 @@ def run_mc_study(scenario, solver_params=None, num_samples: int = 200, seed: int
                      comp=host(res.comp), stat=host(res.stat), u_sol=host(res.u),
                      x0=np.asarray(x0_np),
                      wall_time_s=solve_time, compile_time_s=warmup,
-                     provenance=run_provenance(
-                         solver, seed=seed,
-                         extra=dict(ibr_ws=bool(ibr_ws),
-                                    dgsqp_ws_iters=int(dgsqp_ws_iters))))
+                     provenance=run_provenance(solver, seed=seed, extra=extra))
 
 
 def run_mc_study_algames(scenario, params=None, num_samples: int = 200, seed: int = 0,

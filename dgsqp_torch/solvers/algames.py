@@ -492,9 +492,12 @@ class ALGAMES:
                           stat=torch.where(running, opt_vio, c.stat))
 
     def solve_batch_chunked(self, q_ws, u_ws, x0, u_prev, chunk_iters: int = 1,
-                            max_chunks=None, verbose: bool = False) -> ALGAMESResult:
+                            max_chunks=None, verbose: bool = False,
+                            mesh=None) -> ALGAMESResult:
         """Batched solve as a host loop over chunks of ``chunk_iters`` outer AL
-        iterations with straggler compaction between chunks."""
+        iterations with straggler compaction between chunks (across ranks with a
+        ``mesh`` of several: the inputs are then this rank's block, the result the whole
+        batch's)."""
         def chunk_fn(c, x, u_p):
             for _ in range(chunk_iters):
                 if not bool((c.status == RUNNING).any()):
@@ -507,7 +510,7 @@ class ALGAMES:
         res, history = run_chunked_compacted(
             carry, x0, u_prev, chunk_fn, final_fn=lambda c, x, u_p: self._finalize_outer(c, x),
             running_status=RUNNING, max_chunks=max_chunks, verbose=verbose,
-            print_method=self.print_method)
+            print_method=self.print_method, mesh=mesh)
         self.last_chunk_history = history
         return res
 

@@ -848,14 +848,17 @@ class DGSQP(_HostInterface):
 
     def solve_batch_chunked(self, u0, l0, x0, up, chunk_iters: int = 8,
                             max_chunks: Optional[int] = None, verbose: bool = False,
-                            compact: bool = True) -> SQPResult:
+                            compact: bool = True, mesh=None) -> SQPResult:
         """Batched solve as a host loop over chunks: of ``4 * chunk_iters`` rounds of the
         flat machine, with straggler compaction between chunks unless ``compact=False``;
         or of ``chunk_iters`` iterations of the nested machine at a fixed layout (the
         nested machine never compacts, as in the JAX package).  Inputs are (B, ...)
         tensors on the solver's device; the result is in the input order.
         ``last_chunk_history`` holds a dict a chunk: ``chunk``, ``running``, ``batch``
-        and ``wall_s`` (and, nested, ``iters_p50`` and ``stat_p50``)."""
+        and ``wall_s`` (and, nested, ``iters_p50`` and ``stat_p50``).  With a ``mesh``
+        of several ranks (``dgsqp_torch.parallel``) the inputs are this rank's block
+        and the result is the whole batch's, on every rank; the nested p50s are over
+        this rank's block, so that a chunk's one collective stays the status gather."""
         history_fn = None
         if self._use_flat():
             n_steps, step = 4 * chunk_iters, lambda c, x, u_p: self._round(c, x, u_p)
@@ -881,7 +884,8 @@ class DGSQP(_HostInterface):
         res, history = run_chunked_compacted(
             carry, x0, up, chunk_fn, final_fn=self._finalize, running_status=RUNNING,
             max_chunks=max_chunks, min_bucket=self._compact_min_bucket, verbose=verbose,
-            can_compact=compact, print_method=self.print_method, history_fn=history_fn)
+            can_compact=compact, print_method=self.print_method, history_fn=history_fn,
+            mesh=mesh)
         self.last_chunk_history = history
         return res
 

@@ -611,10 +611,12 @@ class DGSQPV2(_HostInterface):
 
     def solve_batch_chunked(self, u0, l0, x0, up, chunk_iters: int = 8,
                             max_chunks: Optional[int] = None, verbose: bool = False,
-                            compact: Optional[bool] = None) -> SQPResult:
+                            compact: Optional[bool] = None, mesh=None) -> SQPResult:
         """Batched solve as a host loop over chunks of ``chunk_iters`` rounds, with
         straggler compaction between chunks unless ``compact=False``.  Inputs are
         (B, ...) tensors on the solver's device; the result is in the input order.
+        With a ``mesh`` of several ranks the inputs are this rank's block and the result
+        is the whole batch's, on every rank.
 
         v2 needs no separate flat machine: its round already has a fixed signature,
         so chunked lockstep execution plus compaction gives it the batch efficiency v1
@@ -633,7 +635,8 @@ class DGSQPV2(_HostInterface):
         out, history = run_chunked_compacted(
             carry, x0, up, chunk_fn, final_fn=final_fn, running_status=RUNNING,
             max_chunks=max_chunks, min_bucket=self._compact_min_bucket, verbose=verbose,
-            can_compact=compact is None or compact, print_method=self.print_method)
+            can_compact=compact is None or compact, print_method=self.print_method,
+            mesh=mesh)
         self.last_chunk_history = history
         self.last_m_iters = out[-1]
         return SQPResult(*out[:-1])

@@ -139,7 +139,15 @@ def parser() -> argparse.ArgumentParser:
                          "NMS frequency 10, delta0=20, 500 iterations, absolute "
                          "tolerances)")
     ap.add_argument('--out', default='results')
-    ap.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
+    ap.add_argument('--device', default='cuda',
+                    help="'cuda' (default) or 'cpu'; with --devices K, 'cuda' is CUDA "
+                         "devices 0..K-1, or name one device a rank (cuda:0,cuda:0 "
+                         "puts two ranks on one card)")
+    ap.add_argument('--devices', type=int, default=None,
+                    help='shard the study over K ranks, a process and a device each '
+                         '(the output is the one device gives)')
+    ap.add_argument('--rank_timeout', type=float, default=3600.0,
+                    help='seconds before a sharded run that has not ended fails')
     ap.add_argument('--dtype', default=None, choices=['float32', 'float64'],
                     help='float64 for --solver mcp|algames, float32 otherwise')
     ap.add_argument('--skip_existing', action='store_true',
@@ -181,10 +189,49 @@ def output_path(args, ap, scenario) -> Path:
 
 
 def main(argv=None):
+    """Run the study the options name: on one device; on ``--devices K`` ranks started
+    here (``spawn_ranks``: K CUDA devices, or the K devices ``--device`` lists, e.g.
+    ``cuda:0,cuda:0``, or ``cpu``); or, when ``DGSQP_COORDINATOR`` and
+    ``DGSQP_NUM_PROCESSES`` are set, as one rank of processes started apart
+    (``init_distributed``).  Rank 0 alone writes the output and prints its summary."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = parser()
     args = ap.parse_args(argv)
+    from dgsqp_torch.parallel.mesh import games_mesh, init_distributed, leave, spawn_ranks
 
+    if init_distributed():
+        try:
+            _report(run_study(argv, games_mesh(args.devices)))
+        finally:
+            leave()
+    elif (args.devices or 1) > 1:
+        # the ranks import this script by name to find their function
+        here = str(Path(__file__).resolve().parent)
+        if here not in sys.path:
+            sys.path.insert(0, here)
+        _report(spawn_ranks(_study_rank, args.devices, argv, devices=args.device,
+                            timeout_s=args.rank_timeout)[0])
+    else:
+        _report(run_study(argv))
+
+
+def _study_rank(mesh, argv):
+    return run_study(argv, mesh)
+
+
+def _report(stats):
+    if stats is not None:
+        print(json.dumps(stats, indent=2, default=str))
+
+
+def run_study(argv, mesh=None):
+    """The study of these options on this process's device (the rank's, with a
+    ``mesh``); saves it and returns its summary, on rank 0 (``None`` on the others)."""
+    ap = parser()
+    args = ap.parse_args(argv)
     approx = args.formulation == 'approximate'
+    device = args.device if mesh is None else str(mesh.device)
+    n_devices = None if mesh is None else mesh.size
 
     import torch
 
@@ -228,9 +275,10 @@ def main(argv=None):
         mcp = PATHMCPFrenetApprox(scenario.joint_model, scenario.costs,
                                   scenario.agent_constraints, scenario.shared_constraints,
                                   scenario.bounds, mcp_params(), print_method=None,
-                                  dtype=dtype, device=args.device)
+                                  dtype=dtype, device=device)
         res = run_mc_study(scenario, num_samples=args.n, seed=args.seed, solver=mcp,
-                           ibr_ws=args.ibr_ws, dgsqp_ws_iters=args.dgsqp_ws)
+                           ibr_ws=args.ibr_ws, dgsqp_ws_iters=args.dgsqp_ws,
+                           n_devices=n_devices)
     elif approx:
         if args.reference_faithful:
             # the reference study's own knobs: frozen-P cadence, heavy decaying proximal
@@ -263,8 +311,9 @@ def main(argv=None):
                                      scenario.agent_constraints,
                                      scenario.shared_constraints, scenario.bounds,
                                      params, print_method=None, dtype=dtype,
-                                     device=args.device)
-        res = run_mc_study(scenario, num_samples=args.n, seed=args.seed, solver=solver)
+                                     device=device)
+        res = run_mc_study(scenario, num_samples=args.n, seed=args.seed, solver=solver,
+                           n_devices=n_devices)
     elif args.solver == 'dgsqp':
         params = DGSQPParams(N=scenario.N, dt=scenario.dt, reg=1e-3, nonmono_ls=True,
                              line_search_iters=50, sqp_iters=args.sqp_iters,
@@ -273,19 +322,23 @@ def main(argv=None):
         if args.conv:
             params.conv_method = args.conv
         res = run_mc_study(scenario, solver_params=params, num_samples=args.n,
-                           seed=args.seed, dtype=dtype, device=args.device,
-                           ibr_ws=args.ibr_ws)
+                           seed=args.seed, dtype=dtype, device=device,
+                           ibr_ws=args.ibr_ws, n_devices=n_devices)
     elif args.solver == 'algames':
         from dgsqp_torch.harness.mc_study import run_mc_study_algames
+        if mesh is not None:
+            raise ValueError('the ALGAMES study runs on one device (as the JAX '
+                             "script's): drop --devices")
         res = run_mc_study_algames(scenario, num_samples=args.n, seed=args.seed,
-                                   dtype=dtype, device=args.device)
+                                   dtype=dtype, device=device)
     elif args.solver == 'mcp':
         from dgsqp_torch.solvers.mcp import PATHMCP
         mcp = PATHMCP(scenario.joint_model, scenario.costs, scenario.agent_constraints,
                       scenario.shared_constraints, scenario.bounds, mcp_params(),
-                      print_method=None, dtype=dtype, device=args.device)
+                      print_method=None, dtype=dtype, device=device)
         res = run_mc_study(scenario, num_samples=args.n, seed=args.seed, solver=mcp,
-                           ibr_ws=args.ibr_ws, dgsqp_ws_iters=args.dgsqp_ws)
+                           ibr_ws=args.ibr_ws, dgsqp_ws_iters=args.dgsqp_ws,
+                           n_devices=n_devices)
     else:
         params = DGSQPV2Params(N=scenario.N, dt=scenario.dt, sqp_iters=args.sqp_iters,
                                p_tol=args.p_tol, d_tol=args.d_tol,
@@ -295,11 +348,12 @@ def main(argv=None):
         nms_overrides(params)
         res = run_mc_study(scenario, solver_params=params, num_samples=args.n,
                            seed=args.seed, solver_cls=DGSQPV2, dtype=dtype,
-                           device=args.device, ibr_ws=args.ibr_ws)
+                           device=device, ibr_ws=args.ibr_ws, n_devices=n_devices)
 
-    stats = analyze_results(res)
+    if mesh is not None and mesh.rank != 0:
+        return None
     save_results(res, out_name)
-    print(json.dumps(stats, indent=2, default=str))
+    return analyze_results(res)
 
 
 if __name__ == '__main__':

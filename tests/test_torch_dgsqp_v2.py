@@ -100,8 +100,10 @@ def test_v1_solve_and_step_match_jax_on_the_flat_machine():
 
 
 def test_unported_machines_raise():
-    """The default parameters (the nested machine) build and solve; sharding a study
-    over several GPUs is still not ported and raises."""
+    """The default parameters (the nested machine) build and solve; a study sharded over
+    several ranks outside a rank group raises, telling the caller to start the ranks
+    (no device is chosen implicitly; ``tests/test_torch_parallel_study.py`` runs such
+    studies)."""
     from dgsqp_torch.harness.mc_study import run_mc_study
     from dgsqp_torch.harness.scenarios import build_chicane_scenario
     joint, costs, shared, bounds = torch_game()
@@ -110,6 +112,6 @@ def test_unported_machines_raise():
     assert not v1._use_flat()
     info = v1.solve([VehicleState(), VehicleState()])
     assert info['msg'] in ('conv_abs_tol', 'conv_rel_tol')
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match='spawn_ranks'):
         run_mc_study(build_chicane_scenario(N=3), num_samples=2, n_devices=2,
                      dtype=torch.float64, device='cpu')

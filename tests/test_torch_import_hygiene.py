@@ -43,7 +43,7 @@ def test_importing_every_module_loads_no_jax():
                 'ops.dynamics', 'harness.dynamic_study', 'harness.f1_study',
                 'tracks.track_lib', 'solvers.ocp_qp', 'solvers.ca_ltv_mpc', 'solvers.pid',
                 'solvers.abstract_solver', 'dynamics.simulator', 'harness.race',
-                'harness.plotting', 'utils.profiling'):
+                'harness.plotting', 'utils.profiling', 'parallel', 'parallel.mesh'):
         assert f'dgsqp_torch.{new}' in mods
     scripts = [p.stem for p in SCRIPTS]
     assert 'torch_monte_carlo_main' in scripts and 'torch_profile_round' in scripts
@@ -139,6 +139,17 @@ def test_new_entry_points_default_to_the_card():
         assert "'--device', default='cuda'" in script and "'--dtype'" in script, name
     assert "os.environ.get('DGSQP_DEVICE', 'cuda')" in \
         (ROOT / 'scripts' / 'torch_mcp_tune.py').read_text()
+    # sharding names its devices: CUDA devices 0..K-1 unless a device a rank is named
+    import pytest
+    import torch
+    from dgsqp_torch.parallel.mesh import games_mesh, resolve_devices, spawn_ranks
+    assert inspect.signature(games_mesh).parameters['devices'].default is None
+    assert inspect.signature(spawn_ranks).parameters['devices'].default is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='CUDA device'):
+            resolve_devices(None, 1)
+    script = (ROOT / 'scripts' / 'torch_monte_carlo_main.py').read_text()
+    assert "'--devices', type=int, default=None" in script
 
 
 def test_mpc_and_race_entry_points_default_to_the_card():

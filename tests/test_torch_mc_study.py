@@ -13,8 +13,9 @@
   the study after the retries), carried across field by field.
 * ``scripts/torch_monte_carlo_main.py --device cpu`` writes its ``.pkl`` and ``.json``
   under a name that holds every option off its default, so that the option sets of
-  ``scripts/run_ablation_study.sh`` write distinct outputs; multi-GPU sharding raises
-  ``NotImplementedError`` (the IBR warm start and the baselines' studies are held
+  ``scripts/run_ablation_study.sh`` write distinct outputs; a study sharded over ranks
+  outside a rank group raises (the sharded studies are in
+  ``test_torch_parallel_study.py``; the IBR warm start and the baselines' studies are held
   against the JAX package in ``test_torch_baselines_study.py`` and
   ``test_torch_algames_study.py``).
 """
@@ -264,6 +265,8 @@ def test_ablation_option_sets_get_distinct_names():
 
 
 def test_unported_study_options_raise():
+    """Four ranks asked for in one process with no rank group: the study raises, telling
+    the caller to start the ranks, instead of falling back to one process."""
     sc = build_agents_scenario(M=2, N=3)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match='spawn_ranks'):
         mc_study.run_mc_study(sc, num_samples=2, device='cpu', n_devices=4)

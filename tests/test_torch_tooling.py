@@ -19,7 +19,11 @@
   packages' strings, and the ``slow`` test holds DGSQP's to each other.  ``python
   tests/test_torch_tooling.py --write-record`` writes the JAX package's strings of all
   128 games (DGSQP and the MCP) to ``dgsqp_torch/harness/data/oracle_statuses_f64.json``,
-  the record that ``oracle_path`` counts the card's games against.
+  the record that ``oracle_path`` counts the card's games against.  ``python
+  tests/test_torch_tooling.py --mcp-parting GAME [ITERS]`` traces one of those games
+  through the hybrid MCP's Josephy phase in both packages (alone in its batch) and in
+  the port beside game 91 and in the batch of 128, and prints how far the iterates are
+  apart after each iteration (where the MCP's statuses part: rounding, amplified).
 """
 import importlib.util
 import json
@@ -292,17 +296,77 @@ def _write_oracle_record():
     print(json.dumps(rec))
 
 
+def mcp_parting(game: int, iters: int = 10):
+    """One oracle game's Josephy-phase iterates (the hybrid MCP's first phase, float64,
+    CPU) in the JAX package and in the port from the same inputs, alone in the batch,
+    and in the port beside game 91 and in the batch of 128: one JSON line an iteration
+    with the largest differences of u and (relative) of the duals."""
+    import jax
+    from dgsqp_tpu.harness.scenarios import build_chicane_scenario as jax_chicane
+    from dgsqp_tpu.solvers.mcp import PATHMCP as JaxPATHMCP
+    from dgsqp_tpu.solvers.solver_types import PATHMCPParams as JaxParams
+    from dgsqp_torch.harness import mc_study
+    from dgsqp_torch.harness.scenarios import build_chicane_scenario
+    from dgsqp_torch.harness.warm_start import seed_virtual_rate_prev
+    from dgsqp_torch.solvers.mcp import PATHMCP
+    from dgsqp_torch.solvers.solver_types import PATHMCPParams
+    from test_torch_mcp import jax_trace, port_trace
+    torch.set_num_threads(1)
+    kw = dict(N=25, tol=1e-3, method='hybrid', max_iters=200, max_restarts=4)
+    sc, jsc = build_chicane_scenario(N=25, theta_deg=45.0), jax_chicane(N=25, theta_deg=45.0)
+    game_args = (sc.joint_model, sc.costs, sc.agent_constraints, sc.shared_constraints,
+                 sc.bounds)
+    ts = PATHMCP(*game_args, PATHMCPParams(dt=sc.dt, **kw), print_method=None,
+                 dtype=torch.float64, device='cpu')
+    js = JaxPATHMCP(jsc.joint_model, jsc.costs, jsc.agent_constraints,
+                    jsc.shared_constraints, jsc.bounds, JaxParams(dt=jsc.dt, **kw),
+                    print_method=None)
+    x0_all, u_ws_all, _, _ = mc_study._sample(sc, ORACLE_GAMES, 0, torch.float64, 'cpu')
+
+    def warm(games):
+        x0 = torch.as_tensor(x0_all)[games]
+        u_ws = torch.as_tensor(u_ws_all)[games]
+        u0 = ts.problem.stage_to_u(u_ws)
+        up = seed_virtual_rate_prev(torch.zeros(len(games), sc.joint_model.n_u),
+                                    u_ws[:, 0, :], sc.joint_model)
+        return u0, mc_study._dual_warm_start(ts, u0, x0, up), x0, up
+
+    alone = warm([game])
+    _, hist_j = jax_trace(lambda u, l, x, p: js._solve_core_josephy(u, l, x, p, None),
+                          iters, *(jnp.asarray(a.numpy()) for a in alone))
+    runs = {'jax': [(np.asarray(hist_j.u)[0, k], np.asarray(hist_j.l)[0, k])
+                    for k in range(iters)]}
+    for name, games in (('alone', [game]), ('beside_91', [game, 91]),
+                        ('batch_128', list(range(ORACLE_GAMES)))):
+        row = games.index(game)
+        runs[name] = [(c.u[row].numpy(), c.l[row].numpy())
+                      for c in port_trace(ts, 'josephy', iters, *warm(games))]
+    for k in range(iters):
+        u0, l0 = runs['alone'][k]
+        line = {'iteration': k + 1}
+        for name in ('jax', 'beside_91', 'batch_128'):
+            u, l = runs[name][k]
+            line[name] = {'u': float(np.abs(u - u0).max()),
+                          'l': float(np.abs(l - l0).max() / max(1.0, np.abs(l0).max()))}
+        print(json.dumps(line), flush=True)
+
+
 if __name__ == '__main__':
     usage = ('usage: python tests/test_torch_tooling.py --oracle-statuses [GAMES]'
-             ' | --write-record')
+             ' | --write-record | --mcp-parting GAME [ITERS]')
     if not (sys.argv[1:] == ['--write-record'] or
-            (sys.argv[1:2] == ['--oracle-statuses'] and len(sys.argv) <= 3)):
+            (sys.argv[1:2] == ['--oracle-statuses'] and len(sys.argv) <= 3) or
+            (sys.argv[1:2] == ['--mcp-parting'] and len(sys.argv) in (3, 4))):
         sys.exit(usage)
     import jax
     jax.config.update('jax_platforms', 'cpu')
     jax.config.update('jax_enable_x64', True)
     if sys.argv[1] == '--write-record':
         _write_oracle_record()
+        sys.exit(0)
+    if sys.argv[1] == '--mcp-parting':
+        sys.path.insert(0, str(ROOT / 'tests'))
+        mcp_parting(int(sys.argv[2]), *(int(a) for a in sys.argv[3:]))
         sys.exit(0)
     n = int(sys.argv[2]) if len(sys.argv) == 3 else ORACLE_GAMES
     print(json.dumps({f'{solver}_{package}': oracle_statuses(package, solver, n)
