@@ -24,9 +24,17 @@ Phases, each printing one line on stdout:
 3. ``parity``: one round of ``evaluate`` + convexified QP on 16 games of the seed-0
    bench batch, the port on the card in float32 against the port on the CPU in float64.
 4. ``main_path``: the bench problem (two-agent chicane duel, N=25, theta=45 deg, batch
-   256, seed 0, float32, DGSQP v1) solved with ``solve_batch_chunked(chunk_iters=4,
-   compact=False)``, after a warm-up of one chunk on 16 games, with the kernels' launch
-   counts.
+   256, seed 0, float32, DGSQP v1) solved through the port's bench entry
+   (``dgsqp_torch/harness/bench.py``: ``solve_batch_chunked(chunk_iters=4,
+   compact=False)`` after a warm-up of one chunk on 16 games, one timed solve, the
+   bench's fields), with the kernels' launch counts; its per-game statuses counted
+   against the JAX package's float32 CPU run of the same batch and solve
+   (``dgsqp_torch/harness/data/bench_reference_f32.json``), at least
+   ``BENCH_MIN_AGREE`` games alike.  Right after it ``bench_cli`` starts
+   ``scripts/torch_bench.py`` in a process of its own (the bench's defaults at one timed
+   solve: ``main_path``'s batch); joined before the merge's child starts, its last line
+   must carry the bench's fields for the 256 games on the card, and each game
+   ``main_path``'s status.
 5. ``v2_path``: the same batch solved by DGSQP v2 (``build_bench_solver(solver_name=
    'v2')``) with ``solve_batch_chunked(chunk_iters=4)``, compaction on, after the same
    warm-up, with the launch counts, the m-step counts and the chunks' bucket sizes.
@@ -52,7 +60,9 @@ Phases, each printing one line on stdout:
    the best response's n = 50 (and its polish's 48 rows).
 11. ``algames_path``: ``run_mc_study_algames`` on the same chicane in float64 (n_y = 1000
    decisions a game) on the first 8 of the ``oracle_path``'s games, compared with its
-   DGSQP by ``gne_compare``.
+   DGSQP by ``gne_compare``.  It and ``oracle_path`` run one after the other in a
+   process of their own (``chip_smoke.py --oracle-paths``), started with the merge's and
+   joined after it; their lines are printed when it ends.
 12. ``merge_path``: the equilibrium-match study of the merge (three kinematic unicycles,
    N=20, n = 120 decisions) in float64, seed 0, 128 games: ``run_mc_study`` with DGSQP
    v1's study defaults, the MCP oracle as in ``oracle_path``, then ``gne_compare``
@@ -62,7 +72,7 @@ Phases, each printing one line on stdout:
    at the polish's 80 rows.  It runs in a process of its own (``chip_smoke.py
    --merge-path``, started by this one), beside ``oracle_path``, ``ibr_ws`` and
    ``algames_path``: every path is host-bound on one CPU core with the card mostly
-   idle, so the two share the card and take a core each; its line is printed when it
+   idle, so the paths share the card and take a core each; its line is printed when it
    ends.
 13. ``dp_parity``: the stage-wise game derivatives (``evaluate_dp``) against
    ``evaluate``, both with the Hessian in float32 on the card, on the bench batch (256
@@ -170,6 +180,21 @@ KERNEL_RTOL = {'float32': 1e-4, 'float64': 1e-10}
 DERIV_RTOL = 1e-4
 STEP_RTOL = 2e-2
 CONV_ABS_MIN, CONV_ANY_MIN = 0.45, 0.70
+# main_path's per-game statuses against the JAX package's float32 run of the same batch
+# and solve on the CPU (the record tests/test_torch_bench.py writes: 145 conv_abs / 65
+# conv_rel / 46 stalled); in float32 a rounding flip moves a game between conv_abs,
+# conv_rel and stalled, so the limit is 95% of the games (as SHARDED_MIN_AGREE), not
+# drawn to the port's own count (247 on the card)
+BENCH_RECORD = Path(__file__).resolve().parent / 'dgsqp_torch' / 'harness' / 'data' / \
+    'bench_reference_f32.json'
+BENCH_MIN_AGREE = 243
+# bench_cli: scripts/torch_bench.py on main_path's batch, one timed solve.  A 16-game
+# bench draws other games than main_path's first 16 (the sampler draws max(2B, 8)
+# candidates a round), and the card's float32 rounding depends on the batch width (those
+# first 16 solved 16 wide end game 6 conv_rel, main_path stalled), so the CLI solves
+# main_path's batch at its width
+BENCH_CLI_GAMES = 256
+BENCH_CLI_TIMEOUT_S = 600
 # DGSQP v2 on the same batch: the JAX package's float32 record is 0.555 conv_abs with no
 # conv_rel exit, so both limits are 0.45
 V2_CONV_ABS_MIN, V2_CONV_ANY_MIN = 0.45, 0.45
@@ -727,83 +752,72 @@ def read_launches_by_n():
 
 def phase_bench_path(phase, solver_name, sol, batch, conv_min, conv_any_min, chunk=4,
                      metric='chicane_2agent_solves_per_s', n_dec=None, conv_abs_limit=None,
-                     kernel_ns=(), extra=None, **kw):
-    """Solve the bench batch with ``sol.solve_batch_chunked(chunk_iters=chunk, **kw)``
-    after a warm-up of one chunk on a few games, print the bench's fields and check the
-    result.  Every result must be finite; for v2 and the approximate game a game that
-    diverged is exempt (it stops with whatever iterate it had).  ``conv_min`` fails the
-    phase below it; ``n_dec``, where given, is the decision count the path must run at,
-    and both kernels must have launched at every matrix size of ``kernel_ns``;
-    ``extra(result)``, where given, adds its dict to the line."""
+                     kernel_ns=(), extra=None, hold=None, compact=True):
+    """Solve the bench batch through the bench entry (``run_bench``: a warm-up of one
+    chunk on a few games, then one timed ``sol.solve_batch_chunked(chunk_iters=chunk,
+    compact=compact)``), print the entry's line (``bench.py``'s fields) under the
+    phase's ``metric`` with the phase's own fields, and check the result.  Every result
+    must be finite; for v2 and the approximate game a game that diverged is exempt (it
+    stops with whatever iterate it had).  ``conv_min`` fails the phase below it;
+    ``n_dec``, where given, is the decision count the path must run at, and both kernels
+    must have launched at every matrix size of ``kernel_ns``; ``extra(result)``, where
+    given, adds its dict to the line; ``hold(status)``, where given, returns (fields for
+    the line, problems)."""
     import numpy as np
     import torch
+    from dgsqp_torch.harness.bench import BenchConfig, run_bench
     from dgsqp_torch.ops import linalg
-    from dgsqp_torch.solvers.dgsqp import CONV_ABS, CONV_REL, DIVERGED, RUNNING, STATUS_MSG
-    u0, l0, x0, up = batch
-    B = u0.shape[0]
+    from dgsqp_torch.solvers.dgsqp import DIVERGED, RUNNING
+    B = batch[0].shape[0]
 
-    t0 = time.time()
-    sol.solve_batch_chunked(*(a[:WARMUP_GAMES] for a in batch), chunk_iters=chunk,
-                            max_chunks=1, **kw)
-    torch.cuda.synchronize()
-    warmup_s = time.time() - t0
-
-    # count the batched QP solves (one per round) beside the kernels' launches
+    # count the batched QP solves (one per round) beside the kernels' launches, from 0
+    # just before the timed solve
     qp_calls = [0]
+    attr_sets = [0]
     inner_qp = sol._qp
 
     def counted_qp(*a, **k):
         qp_calls[0] += 1
         return inner_qp(*a, **k)
 
+    def reset():
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        qp_calls[0] = 0
+        attr_sets[0] = linalg.cholesky.attr_sets + linalg.cho_solve.attr_sets
+
     sol._qp = counted_qp
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    attr_sets = linalg.cholesky.attr_sets + linalg.cho_solve.attr_sets
-    t0 = time.time()
     try:
-        res = sol.solve_batch_chunked(u0, l0, x0, up, chunk_iters=chunk, **kw)
+        run = run_bench(BenchConfig(batch=B, horizon=sol.N, solver_name=solver_name,
+                                    chunk=chunk, compact=compact, reps=1),
+                        solver=sol, batch=batch, before_solve=reset)
     finally:
         del sol._qp
-    torch.cuda.synchronize()
-    dur = time.time() - t0
+    res = run.result
     launches = read_launches()
     launches_by_n = read_launches_by_n()
 
     status = res.status.cpu().numpy()
     iters = res.iters.cpu().numpy()
-    stat_f = res.stat.double().cpu().numpy()
-    p = sol.params
-    conv = float(np.isin(status, (CONV_ABS,)).mean())
-    conv_any = float(np.isin(status, (CONV_ABS, CONV_REL)).mean())
-    conv_ref_abs = float(((res.p_feas.double().cpu().numpy() <= p.p_tol)
-                          & (res.comp.double().cpu().numpy() <= p.d_tol)
-                          & (stat_f <= p.d_tol)).mean())
-    hist = {STATUS_MSG.get(int(s), str(s)): int((status == s).sum()) for s in np.unique(status)}
-    chunks = sol.last_chunk_history
+    conv = run.line['convergence_rate']
+    conv_any = run.line['convergence_rate_incl_rel']
+    chunks = run.chunk_history
     line = {
         'phase': phase,
+        **run.line,
         'metric': metric,
-        'value': B / dur,
-        'unit': 'solves/s',
-        'solve_s': dur,
-        'warmup_s': warmup_s,
-        'convergence_rate': conv,
-        'convergence_rate_incl_rel': conv_any,
-        'convergence_rate_ref_abs': conv_ref_abs,
-        'p_tol': p.p_tol, 'd_tol': p.d_tol,
-        'status_counts': hist,
+        'solve_s': run.rep_s[0],
+        'warmup_s': run.warmup_s,
         'iters_p50': float(np.median(iters)), 'iters_max': int(iters.max()),
-        'stat_p50': float(np.median(stat_f)), 'stat_p90': float(np.percentile(stat_f, 90)),
-        'batch': int(B), 'horizon': sol.N, 'n_dec': sol.n_dec, 'n_c': sol.n_c,
-        'solver': solver_name, 'dtype': str(sol.dtype),
+        'n_dec': sol.n_dec, 'n_c': sol.n_c, 'dtype': str(sol.dtype),
         'chunks': len(chunks), 'running_after_chunk': [c['running'] for c in chunks],
         'chunk_batch': [c['batch'] for c in chunks],
         'chunk_wall_s': [c['wall_s'] for c in chunks],
         'launches': launches, 'launches_by_n': launches_by_n, 'qp_calls': qp_calls[0],
         'peak_device_mib': torch.cuda.max_memory_allocated() / 2 ** 20,
         'attr_sets_in_this_solve': (linalg.cholesky.attr_sets + linalg.cho_solve.attr_sets
-                                    - attr_sets),
+                                    - attr_sets[0]),
         # one digit per game, in batch order: the game's status code
         'status_string': ''.join(str(int(s)) for s in status),
     }
@@ -817,11 +831,15 @@ def phase_bench_path(phase, solver_name, sol, batch, conv_min, conv_any_min, chu
         line['conv_abs_at_or_above_limit'] = conv >= conv_abs_limit
     if extra is not None:
         line.update(extra(res))
+    held_problems = []
+    if hold is not None:
+        fields, held_problems = hold(status)
+        line.update(fields)
     emit(line)
     alive = torch.as_tensor((status != DIVERGED) | (not v2_family), device=res.u.device)
     finite = all(bool(torch.isfinite(t[alive]).all()) for t in (res.u, res.l, res.stat,
                                                                 res.p_feas, res.comp))
-    problems = []
+    problems = list(held_problems)
     if not all(v > 0 for v in launches.values()):
         problems.append(f'a kernel was not launched on {phase}: {launches}')
     if (status == RUNNING).any():
@@ -839,6 +857,86 @@ def phase_bench_path(phase, solver_name, sol, batch, conv_min, conv_any_min, chu
         problems.append(f'kernels not launched at these sizes: {missing}')
     if problems:
         raise AssertionError(f'{phase}: ' + '; '.join(problems))
+    return line
+
+
+def hold_bench_record(status):
+    """``main_path``'s per-game statuses counted against the JAX package's float32 CPU
+    run of the same batch and solve: (fields for the line, problems)."""
+    import numpy as np
+    from dgsqp_torch.solvers.dgsqp import STATUS_MSG
+    rec = json.loads(BENCH_RECORD.read_text())
+    ref = np.array(rec['status'])
+    agree = int((status == ref).sum())
+    fields = {'statuses_vs_jax_cpu_float32': agree, 'min_agree_with_record': BENCH_MIN_AGREE,
+              'record_status_counts': rec['status_counts'],
+              'games_unlike_record': {int(g): [STATUS_MSG[int(status[g])],
+                                               STATUS_MSG[int(ref[g])]]
+                                      for g in np.where(status != ref)[0]}}
+    problems = [] if agree >= BENCH_MIN_AGREE else [
+        f'{agree} games end as in the JAX float32 record, fewer than {BENCH_MIN_AGREE}']
+    return fields, problems
+
+
+BENCH_CLI_OUT = Path(__file__).resolve().parent / 'build' / 'bench_cli.json'
+
+
+def bench_cli_env() -> dict:
+    return {'DGSQP_BENCH_BATCH': str(BENCH_CLI_GAMES), 'DGSQP_BENCH_REPS': '1',
+            'DGSQP_BENCH_OUT': str(BENCH_CLI_OUT)}
+
+
+def start_bench_cli():
+    """``scripts/torch_bench.py`` on ``main_path``'s batch, in a process of its own
+    (host-bound on its core beside the phases that follow)."""
+    here = Path(__file__).resolve().parent
+    if BENCH_CLI_OUT.exists():
+        BENCH_CLI_OUT.unlink()
+    env = {k: v for k, v in os.environ.items() if not k.startswith('DGSQP_BENCH_')}
+    env.update(bench_cli_env())
+    proc = subprocess.Popen([sys.executable, str(here / 'scripts' / 'torch_bench.py')],
+                            cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, time.time()
+
+
+def phase_bench_cli(cli, main_status: str):
+    """``bench_cli``: the bench's CLI ran once; its last line is the bench's line for
+    ``BENCH_CLI_GAMES`` games on the card, and each game ends as in ``main_path``."""
+    from dgsqp_torch.harness.bench import LINE_KEYS
+    proc, t0 = cli
+    out, err = proc.communicate(timeout=BENCH_CLI_TIMEOUT_S)
+    seconds = time.time() - t0
+    lines = out.strip().splitlines()
+    try:
+        last = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        last = None
+    written = json.loads(BENCH_CLI_OUT.read_text()) if BENCH_CLI_OUT.exists() else {}
+    status = ''.join(str(s) for s in written.get('status', []))
+    want = main_status[:BENCH_CLI_GAMES]
+    line = {'phase': 'bench_cli', 'command': 'python3 scripts/torch_bench.py',
+            'env': bench_cli_env(), 'exit_code': proc.returncode, 'seconds': seconds,
+            'last_line': last, 'status_string': status,
+            'main_path_status_string': want,
+            'agree_with_main_path': sum(a == b for a, b in zip(status, want)),
+            'stderr_tail': [ln for ln in err.splitlines() if ln.startswith('#')][-6:]}
+    emit(line)
+    problems = []
+    if proc.returncode != 0 or last is None:
+        problems.append(f'exit code {proc.returncode}, last line {lines[-1:]}: '
+                        f'{err[-2000:]}')
+    else:
+        if set(last) != set(LINE_KEYS):
+            problems.append(f'its line has the fields {sorted(last)}')
+        if (last.get('platform'), last.get('batch'), last.get('horizon')) != \
+                ('gpu', BENCH_CLI_GAMES, 25):
+            problems.append(f"platform/batch/horizon {last.get('platform')}/"
+                            f"{last.get('batch')}/{last.get('horizon')}")
+        if status != want:
+            problems.append(f'statuses {status} against main_path\'s {want}')
+    if problems:
+        raise AssertionError('bench_cli: ' + '; '.join(problems))
     return line
 
 
@@ -1106,6 +1204,7 @@ def phase_merge_path(device='cuda'):
 
 
 MERGE_CHILD = '--merge-path'
+ORACLE_CHILD = '--oracle-paths'
 DYNAMIC_CHILD = '--dynamic-paths'
 RACE_CHILD = '--race-path'
 NESTED_CHILD = '--nested-paths'
@@ -1122,9 +1221,10 @@ def start_child(flag, *args):
                             stdout=subprocess.PIPE, text=True)
 
 
-def finish_child(proc, phases, timeout=900):
-    """Wait for a child, emit its phases' lines here, fail if it failed; returns each
-    phase's launches."""
+def finish_child(proc, phases, timeout=900, uncounted=()):
+    """Wait for a child, emit its phases' lines here, fail if it failed; returns the
+    launches of each phase but those of ``uncounted`` (phases that launch neither
+    kernel carry no count)."""
     out, _ = proc.communicate(timeout=timeout)
     lines = {ln['phase']: ln for ln in (json.loads(x) for x in out.splitlines()
                                         if x.startswith('{')) if 'phase' in ln}
@@ -1134,7 +1234,7 @@ def finish_child(proc, phases, timeout=900):
     if proc.returncode != 0 or any(p not in lines for p in phases):
         raise AssertionError(f'{" and ".join(phases)} failed in its process '
                              f'(exit code {proc.returncode})')
-    return {phase: lines[phase]['launches'] for phase in phases}
+    return {phase: lines[phase]['launches'] for phase in phases if phase not in uncounted}
 
 
 def ms_and_launches(fn, reps=3):
@@ -2021,8 +2121,9 @@ def main():
     phase_parity(sc, sol, sol_cpu, batch)
     launches = {}
     main_line = phase_bench_path('main_path', 'v1', sol, batch, CONV_ABS_MIN, CONV_ANY_MIN,
-                                 compact=False)
+                                 compact=False, hold=hold_bench_record)
     launches['main_path'] = main_line['launches']
+    cli = start_bench_cli()
     # the nested machine's paths run beside the rest, on the main path's statuses; the
     # sharded path too where the cores allow it (else after the other children)
     children = [start_child(NESTED_CHILD, main_line['status_string'])]
@@ -2047,12 +2148,13 @@ def main():
             metric='approx_duel_solves_per_s', n_dec=APPROX_N_DEC,
             conv_abs_limit=APPROX_CONV_ABS_LIMIT, kernel_ns=APPROX_KERNEL_NS)['launches']
 
+        phase_bench_cli(cli, main_line['status_string'])
         children += [start_child(MERGE_CHILD), start_child(DYNAMIC_CHILD),
-                     start_child(RACE_CHILD)]
-        sc_or, dg, launches['oracle_path'] = phase_oracle_path()
+                     start_child(RACE_CHILD), start_child(ORACLE_CHILD)]
         launches['ibr_ws'] = phase_ibr_ws(sc, batch)
-        phase_algames_path(sc_or, dg)
         phase_nested_parity(sc, batch)
+        launches.update(finish_child(children[4], ['oracle_path', 'algames_path'],
+                                     uncounted=['algames_path']))
         launches.update(finish_child(children[1], ['merge_path']))
         launches.update(finish_child(children[2], ['dynamic_path', 'f1_path']))
         launches.update(finish_child(children[3], ['race_path']))
@@ -2061,7 +2163,7 @@ def main():
             sharded_child = start_child(SHARDED_CHILD, main_line['status_string'])
         launches.update(finish_child(sharded_child, ['sharded_path']))
     finally:
-        for child in children + [sharded_child]:
+        for child in children + [sharded_child, cli[0]]:
             if child is not None and child.poll() is None:
                 child.kill()
                 child.wait()
@@ -2092,6 +2194,9 @@ def child_process(log_name, phases):
 if __name__ == '__main__':
     if sys.argv[1:] == [MERGE_CHILD]:
         child_process('chip_smoke_merge.jsonl', [phase_merge_path])
+    elif sys.argv[1:] == [ORACLE_CHILD]:
+        child_process('chip_smoke_oracle.jsonl',
+                      [lambda: phase_algames_path(*phase_oracle_path()[:2])])
     elif sys.argv[1:] == [DYNAMIC_CHILD]:
         child_process('chip_smoke_dynamic.jsonl', [phase_dynamic_path, phase_f1_path])
     elif sys.argv[1:] == [RACE_CHILD]:

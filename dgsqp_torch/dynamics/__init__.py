@@ -1,6 +1,7 @@
 from dgsqp_torch.dynamics.model_types import (DynamicBicycleConfig, DynamicsConfig,
                                               KinematicBicycleConfig, ModelConfig,
-                                              MultiAgentModelConfig, UnicycleConfig)
+                                              MultiAgentModelConfig, PointMassConfig,
+                                              UnicycleConfig)
 from dgsqp_torch.dynamics.models import (DynamicBicycle, DynamicBicycleCombined,
                                          DynamicCLBicycle, DynamicsModel, IntegratorModel,
                                          KinematicBicycle, KinematicBicycleCombined,
@@ -8,3 +9,4 @@ from dgsqp_torch.dynamics.models import (DynamicBicycle, DynamicBicycleCombined,
                                          KinematicClUnicycle, KinematicUnicycle,
                                          KinematicUnicycleCombined, get_dynamics_model)
 from dgsqp_torch.dynamics.multi_agent import MultiAgentDynamicsModel
+from dgsqp_torch.dynamics.simulator import DynamicsSimulator

@@ -110,6 +110,15 @@ class KinematicBicycleConfig(DynamicsConfig):
 
 
 @dataclass
+class PointMassConfig(DynamicsConfig):
+    mass: float = 2.366
+    damping_coefficient: float = 0.0
+    drag_coefficient: float = 0.0
+    rolling_resistance: float = 0.0
+    rolling_resistance_exponent: float = 0.5
+
+
+@dataclass
 class UnicycleConfig(DynamicsConfig):
     mass: float = 2.366
     damping_coefficient: float = 0.0

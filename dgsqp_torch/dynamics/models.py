@@ -164,10 +164,20 @@ class DynamicsModel:
     def input2u(self, inp: VehicleActuation) -> np.ndarray:
         return np.array([inp.u_a, inp.u_steer])[:self.n_u]
 
+    def u2input(self, inp: VehicleActuation, u: np.ndarray):
+        inp.u_a = float(u[0])
+        if self.n_u > 1:
+            inp.u_steer = float(u[1])
+        if self.n_u > 2:
+            inp.u_ds = float(u[2])
+
     @abstractmethod
     def qu2state(self, state: VehicleState, q: Optional[np.ndarray] = None,
                  u: Optional[np.ndarray] = None):
         ...
+
+    def q2state(self, state: VehicleState, q: np.ndarray):
+        self.qu2state(state, q, None)
 
     def qu2prediction(self, prediction: Optional[VehiclePrediction],
                       q: Optional[np.ndarray] = None, u: Optional[np.ndarray] = None):

@@ -61,12 +61,25 @@ class MultiAgentDynamicsModel:
     def state2q(self, states: List[VehicleState]) -> np.ndarray:
         return np.concatenate([m.state2q(s) for m, s in zip(self.dynamics_models, states)])
 
+    def state2qu(self, states: List[VehicleState]):
+        qs, us = zip(*[m.state2qu(s) for m, s in zip(self.dynamics_models, states)])
+        return np.concatenate(qs), np.concatenate(us)
+
+    def state2u(self, states: List[VehicleState]) -> np.ndarray:
+        return np.concatenate([m.state2qu(s)[1] for m, s in zip(self.dynamics_models, states)])
+
+    def input2u(self, inputs) -> np.ndarray:
+        return np.concatenate([m.input2u(i) for m, i in zip(self.dynamics_models, inputs)])
+
     def qu2state(self, states: List[VehicleState], q: Optional[np.ndarray] = None,
                  u: Optional[np.ndarray] = None):
         for a, m in enumerate(self.dynamics_models):
             qa = q[self.q_offsets[a]:self.q_offsets[a + 1]] if q is not None else None
             ua = u[self.u_offsets[a]:self.u_offsets[a + 1]] if u is not None else None
             m.qu2state(states[a], qa, ua)
+
+    def q2state(self, states: List[VehicleState], q: np.ndarray):
+        self.qu2state(states, q, None)
 
     def qu2prediction(self, predictions: List[Optional[VehiclePrediction]],
                       q: Optional[np.ndarray] = None, u: Optional[np.ndarray] = None):

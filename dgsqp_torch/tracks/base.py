@@ -137,6 +137,13 @@ class RadiusArclengthTrack(TrackAdapters):
         self.track_length = float(self.key_pts[-1, 3])
         self._tables = {}
 
+    def remove_phase_out(self):
+        """Drop the straight that ``phase_out=True`` appended to the track."""
+        if self.phase_out:
+            self.cl_segs = self.cl_segs[:-1]
+            self.phase_out = False
+            self.initialize()
+
     @staticmethod
     def _compute_key_pts(cl_segs: np.ndarray, init_pos) -> np.ndarray:
         def np_wrap(t):

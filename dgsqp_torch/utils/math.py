@@ -54,11 +54,32 @@ def _eye_like(A):
     return torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
 
 
+def eigh_or_nan(B):
+    """``torch.linalg.eigh`` of a batch of symmetric matrices, with NaN eigenvalues and
+    eigenvectors for a matrix it cannot decompose (a NaN entry, or an iteration that
+    does not converge, as the card's batched solver can in float32), as the JAX
+    package's ``eigh`` gives, where ``torch.linalg.eigh`` raises for the whole batch.
+    A failed batch is split in halves until the failing matrices stand alone."""
+    try:
+        return torch.linalg.eigh(B)
+    except torch.linalg.LinAlgError:
+        if B.dim() == 2 or B.shape[0] == 1:
+            return (torch.full(B.shape[:-1], float('nan'), dtype=B.dtype, device=B.device),
+                    torch.full_like(B, float('nan')))
+        if B.dim() > 3:
+            s, U = eigh_or_nan(B.reshape(-1, *B.shape[-2:]))
+            return s.reshape(B.shape[:-1]), U.reshape(B.shape)
+        h = B.shape[0] // 2
+        (s0, U0), (s1, U1) = eigh_or_nan(B[:h]), eigh_or_nan(B[h:])
+        return torch.cat([s0, s1]), torch.cat([U0, U1])
+
+
 def nearest_pd(A, min_eig: float = 1e-10):
     """Project a square matrix onto the PSD cone by eigenvalue clipping: symmetrize,
-    eigendecompose, clip negative eigenvalues to ``min_eig``, re-symmetrize."""
+    eigendecompose, clip negative eigenvalues to ``min_eig``, re-symmetrize (NaN for a
+    matrix the eigendecomposition fails on, as in the JAX package)."""
     B = 0.5 * (A + A.transpose(-1, -2))
-    s, U = torch.linalg.eigh(B)
+    s, U = eigh_or_nan(B)
     s = torch.where(s < 0, torch.full_like(s, min_eig), s)
     C = (U * s[..., None, :]) @ U.transpose(-1, -2)
     return 0.5 * (C + C.transpose(-1, -2))

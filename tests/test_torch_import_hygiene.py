@@ -2,11 +2,15 @@
 ``scripts/torch_*.py`` script) imports JAX or anything of the JAX package ``dgsqp_tpu``,
 or names a data file under ``dgsqp_tpu/`` or a reference checkout: the saved tracks and
 racelines it loads are its own copies, and loading them opens no file of the JAX
-package.  The port's shell scripts call only the port's scripts."""
+package.  The port's shell scripts call only the port's scripts.  The port's
+``solvers``, ``dynamics`` and ``tracks`` export every name their JAX counterparts
+export."""
 import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / 'dgsqp_torch'
@@ -43,7 +47,8 @@ def test_importing_every_module_loads_no_jax():
                 'ops.dynamics', 'harness.dynamic_study', 'harness.f1_study',
                 'tracks.track_lib', 'solvers.ocp_qp', 'solvers.ca_ltv_mpc', 'solvers.pid',
                 'solvers.abstract_solver', 'dynamics.simulator', 'harness.race',
-                'harness.plotting', 'utils.profiling', 'parallel', 'parallel.mesh'):
+                'harness.plotting', 'utils.profiling', 'parallel', 'parallel.mesh',
+                'harness.bench'):
         assert f'dgsqp_torch.{new}' in mods
     scripts = [p.stem for p in SCRIPTS]
     assert 'torch_monte_carlo_main' in scripts and 'torch_profile_round' in scripts
@@ -51,7 +56,9 @@ def test_importing_every_module_loads_no_jax():
     assert 'torch_race_main' in scripts
     for new in ('torch_diagnose_failures', 'torch_diagnose_approx',
                 'torch_stalled_oracle_crosstab', 'torch_merge_oracles', 'torch_mcp_tune',
-                'torch_regularization_study_main', 'torch_analyze_regularization'):
+                'torch_regularization_study_main', 'torch_analyze_regularization',
+                'torch_bench', 'torch_retry_probe', 'torch_profile_batch_scaling',
+                'torch_bench_parting'):
         assert new in scripts, new
     code = ('import importlib, sys\n'
             f'for m in {mods!r}:\n'
@@ -107,6 +114,7 @@ def test_new_entry_points_default_to_the_card():
     """Every entry point of the port takes ``device`` and defaults to ``'cuda'``."""
     import inspect
 
+    from dgsqp_torch.harness.bench import run_bench
     from dgsqp_torch.harness.bench_setup import build_bench_solver
     from dgsqp_torch.harness.dynamic_study import (sample_dynamic_duel_initial_conditions,
                                                    sample_dynamic_pa_initial_conditions)
@@ -120,7 +128,7 @@ def test_new_entry_points_default_to_the_card():
     from dgsqp_torch.solvers.dgsqp_v2_frenet import DGSQPV2FrenetApprox
     from dgsqp_torch.solvers.ibr import IBR
     from dgsqp_torch.solvers.mcp import PATHMCP, PATHMCPFrenetApprox
-    for fn in (build_bench_solver, run_mc_study, sample_agents_initial_conditions,
+    for fn in (build_bench_solver, run_bench, run_mc_study, sample_agents_initial_conditions,
                sample_duel_initial_conditions, DGSQPV2.__init__,
                DGSQPV2FrenetApprox.__init__, run_mc_study_algames, ALGAMES.__init__,
                IBR.__init__, PATHMCP.__init__, PATHMCPFrenetApprox.__init__,
@@ -134,7 +142,7 @@ def test_new_entry_points_default_to_the_card():
     assert params['device'].default == 'cuda' and 'dtype' in params
     for name in ('torch_monte_carlo_main', 'torch_f1_study_main', 'torch_diagnose_failures',
                  'torch_diagnose_approx', 'torch_stalled_oracle_crosstab',
-                 'torch_regularization_study_main'):
+                 'torch_regularization_study_main', 'torch_retry_probe'):
         script = (ROOT / 'scripts' / f'{name}.py').read_text()
         assert "'--device', default='cuda'" in script and "'--dtype'" in script, name
     assert "os.environ.get('DGSQP_DEVICE', 'cuda')" in \
@@ -193,10 +201,32 @@ def test_shell_scripts_call_only_the_ports_scripts():
     """``scripts/torch_*.sh`` run only ``scripts/torch_*.py`` scripts that exist."""
     shells = sorted((ROOT / 'scripts').glob('torch_*.sh'))
     assert {p.name for p in shells} >= {'torch_run_regularization_study.sh',
-                                        'torch_run_ablation_study.sh'}
+                                        'torch_run_ablation_study.sh',
+                                        'torch_run_studies.sh', 'torch_bench_sweep.sh',
+                                        'torch_run_bench_matrix.sh'}
     for path in shells:
         called = re.findall(r'scripts/([A-Za-z0-9_]+)\.py', path.read_text())
         assert called, path
         for name in called:
             assert name.startswith('torch_') and (ROOT / 'scripts' / f'{name}.py').exists(), \
                 (path.name, name)
+
+
+def _exported(init: pathlib.Path) -> set:
+    """The names a package's ``__init__.py`` imports (its exports)."""
+    import ast
+    tree = ast.parse(init.read_text())
+    return {a.asname or a.name for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) for a in node.names}
+
+
+@pytest.mark.parametrize('package', ['solvers', 'dynamics', 'tracks'])
+def test_packages_export_the_jax_packages_names(package):
+    """Every name the JAX package's ``solvers``, ``dynamics`` and ``tracks`` export, the
+    port's export too (the port's extra names may stay), and each one imports."""
+    import importlib
+    jax_names = _exported(ROOT / 'dgsqp_tpu' / package / '__init__.py')
+    port_names = _exported(PKG / package / '__init__.py')
+    assert jax_names and not jax_names - port_names, sorted(jax_names - port_names)
+    mod = importlib.import_module(f'dgsqp_torch.{package}')
+    assert all(hasattr(mod, name) for name in port_names)

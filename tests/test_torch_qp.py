@@ -131,3 +131,26 @@ def test_indefinite_branch_matches_jax(correctors):
     _compare(sol_j, sol_t)
     np.testing.assert_allclose(sol_t.t.numpy(), np.asarray(sol_j.t), rtol=TOL, atol=TOL)
     assert np.asarray(sol_j.ok).any()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_eigh_convexification_gives_nan_where_eigh_fails(dtype):
+    """The eigenvalue clipping on a batch with a matrix the eigendecomposition cannot
+    take (a NaN entry) gives NaN for that matrix and the JAX package's values for the
+    others, as the JAX package's ``eigh`` does, where ``torch.linalg.eigh`` raises for
+    the whole batch."""
+    from dgsqp_tpu.utils.math import regularized_convexification as jax_conv
+    from dgsqp_torch.utils.math import regularized_convexification
+    rng = np.random.default_rng(7)
+    A = rng.normal(size=(5, 12, 12))
+    A[3, 2, 4] = A[3, 4, 2] = np.nan
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    with pytest.raises(torch.linalg.LinAlgError):
+        torch.linalg.eigh(torch.as_tensor(A, dtype=dtype))
+    Qh = regularized_convexification(torch.as_tensor(A, dtype=dtype), 1e-3).numpy()
+    Qj = np.asarray(jax_conv(jnp.asarray(A.astype(np_dtype)), 1e-3))
+    assert np.isnan(Qh[3]).all() and np.isnan(Qj[3]).all()
+    ok = [0, 1, 2, 4]
+    assert np.isfinite(Qh[ok]).all()
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    np.testing.assert_allclose(Qh[ok], Qj[ok], rtol=0, atol=tol * np.abs(Qj[ok]).max())

@@ -126,3 +126,76 @@ def test_rollout_matches(scenarios):
                                   np.asarray(jax.vmap(jp.u_to_stage)(jnp.asarray(u))))
     np.testing.assert_array_equal(
         tp.stage_to_u(tp.u_to_stage(torch.tensor(u))).numpy(), u)
+
+
+def _fields(msg, prefix=''):
+    """A message's fields, flattened to {'x.x': value, ...}."""
+    import dataclasses
+    out = {}
+    for f in dataclasses.fields(msg):
+        v = getattr(msg, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update(_fields(v, f'{prefix}{f.name}.'))
+        else:
+            out[prefix + f.name] = v
+    return out
+
+
+def _random_state(types, rng):
+    st = types.VehicleState()
+    st.x.x, st.x.y, st.e.psi = rng.normal(size=3)
+    st.v.v_long, st.v.v_tran, st.w.w_psi = rng.normal(size=3)
+    st.p.s, st.p.x_tran, st.p.e_psi = rng.normal(size=3)
+    st.u.u_a, st.u.u_steer = rng.normal(size=2)
+    return st
+
+
+def test_host_marshalling_matches_jax(scenarios):
+    """The host conversions between vehicle messages and arrays (``u2input``,
+    ``q2state``; the joint model's ``state2qu``, ``state2u``, ``input2u``, ``q2state``)
+    agree with the JAX package's on one state of each of the chicane's models, and
+    ``remove_phase_out`` drops the appended straight as the JAX track does."""
+    import dgsqp_tpu.types as jtypes
+    import dgsqp_torch.types as ttypes
+    from dgsqp_tpu.tracks import ChicaneTrack as JChicaneTrack
+    from dgsqp_torch.tracks import ChicaneTrack
+    jsc, tsc = scenarios
+    jm, tm = jsc.joint_model, tsc.joint_model
+    rng = np.random.default_rng(3)
+    q, u = rng.normal(size=jm.n_q), rng.normal(size=jm.n_u)
+    seeds = [rng.integers(1 << 30) for _ in range(jm.n_a)]
+    states_j = [_random_state(jtypes, np.random.default_rng(s)) for s in seeds]
+    states_t = [_random_state(ttypes, np.random.default_rng(s)) for s in seeds]
+    inputs_j = [st.u for st in states_j]
+    inputs_t = [st.u for st in states_t]
+    for a, (mj, mt) in enumerate(zip(jm.dynamics_models, tm.dynamics_models)):
+        ua = u[jm.u_offsets[a]:jm.u_offsets[a + 1]]
+        qa = q[jm.q_offsets[a]:jm.q_offsets[a + 1]]
+        inp_j, inp_t = jtypes.VehicleActuation(), ttypes.VehicleActuation()
+        mj.u2input(inp_j, ua)
+        mt.u2input(inp_t, ua)
+        assert _fields(inp_t) == _fields(inp_j)
+        st_j, st_t = states_j[a].copy(), states_t[a].copy()
+        mj.q2state(st_j, qa)
+        mt.q2state(st_t, qa)
+        assert _fields(st_t) == _fields(st_j)
+    q_j, u_j = jm.state2qu(states_j)
+    q_t, u_t = tm.state2qu(states_t)
+    np.testing.assert_array_equal(q_t, q_j)
+    np.testing.assert_array_equal(u_t, u_j)
+    np.testing.assert_array_equal(tm.state2u(states_t), jm.state2u(states_j))
+    np.testing.assert_array_equal(tm.input2u(inputs_t), jm.input2u(inputs_j))
+    st_j, st_t = [s.copy() for s in states_j], [s.copy() for s in states_t]
+    jm.q2state(st_j, q)
+    tm.q2state(st_t, q)
+    assert [_fields(s) for s in st_t] == [_fields(s) for s in st_j]
+
+    args = (1, 4, np.pi / 4, 1, 4, np.pi / 4, 2, 1.6, 0.0)
+    tj, tt = JChicaneTrack(*args, phase_out=True), ChicaneTrack(*args, phase_out=True)
+    assert tt.track_length == float(tj.track_length)
+    for track in (tj, tt):
+        track.remove_phase_out()
+    assert tt.phase_out is tj.phase_out is False
+    np.testing.assert_array_equal(tt.cl_segs, np.asarray(tj.cl_segs))
+    np.testing.assert_array_equal(tt.key_pts, np.asarray(tj._kp))
+    assert tt.track_length == float(tj.track_length)
