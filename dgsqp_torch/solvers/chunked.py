@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from dgsqp_torch.parallel.mesh import GamesMesh, pack_rows, unpack_rows
+from dgsqp_torch.utils import profiling
 
 
 def _take(tree, idx):
@@ -74,10 +75,13 @@ def run_chunked_compacted(carry, x0, up, chunk_fn: Callable, *, final_fn: Callab
 
     # the fixed layout; across ranks the one collective a chunk gathers the statuses
     for i in range(max_chunks):
-        t0 = time.time()
-        carry = chunk_fn(carry, x0, up)
-        n_run = int((mesh.all_gather(carry.status, host=True) == running_status).sum())
-        log(i, n_run, B0, t0, carry)
+        with profiling.span('chunk', 'chunks'):
+            t0 = time.time()
+            carry = chunk_fn(carry, x0, up)
+            with profiling.sync('chunk.status'):
+                status = mesh.all_gather(carry.status, host=True)
+            n_run = int((status == running_status).sum())
+            log(i, n_run, B0, t0, carry)
         if n_run == 0:
             break
     return mesh.all_gather_rows(final_fn(carry, x0, up)), history
@@ -90,7 +94,7 @@ def _run_compacting(carry, x0, up, chunk_fn, final_fn, *, B0: int,
     x0_c, up_c = x0, up
     idx = torch.arange(B0, device=dev)
     valid = torch.ones(B0, dtype=torch.bool, device=dev)
-    valid_h = valid.cpu().numpy()
+    valid_h = profiling.read_numpy(valid, 'chunk.valid')
     res_store = None
     compacted = False
 
@@ -119,20 +123,22 @@ def _run_compacting(carry, x0, up, chunk_fn, final_fn, *, B0: int,
         return res_store, _take(carry, sel), new_idx, new_valid, x0[safe], up[safe]
 
     for i in range(max_chunks):
-        t0 = time.time()
-        carry = chunk_fn(carry, x0_c, up_c)
-        status_h = carry.status.cpu().numpy()
-        running = (status_h == running_status) & valid_h
-        n_run = int(running.sum())
-        log(i, n_run, int(valid_h.size), t0, carry)
-        if n_run == 0:
-            break
-        bucket = _bucket(n_run, min_bucket)
-        if bucket <= valid_h.size // 2:
-            compacted = True
-            res_store, carry, idx, valid, x0_c, up_c = merge(
-                res_store, carry, idx, valid, x0_c, up_c, bucket, False)
-            valid_h = valid.cpu().numpy()
+        with profiling.span('chunk', 'chunks'):
+            t0 = time.time()
+            carry = chunk_fn(carry, x0_c, up_c)
+            status_h = profiling.read_numpy(carry.status, 'chunk.status')
+            running = (status_h == running_status) & valid_h
+            n_run = int(running.sum())
+            log(i, n_run, int(valid_h.size), t0, carry)
+            if n_run == 0:
+                break
+            bucket = _bucket(n_run, min_bucket)
+            if bucket <= valid_h.size // 2:
+                compacted = True
+                with profiling.span('chunk.compact', 'compactions'):
+                    res_store, carry, idx, valid, x0_c, up_c = merge(
+                        res_store, carry, idx, valid, x0_c, up_c, bucket, False)
+                    valid_h = profiling.read_numpy(valid, 'chunk.valid')
 
     if not compacted:
         return final_fn(carry, x0, up)
@@ -198,30 +204,33 @@ def _run_sharded(carry, x0, up, chunk_fn, final_fn, *, mesh, B0: int,
 
     compacted = False
     for i in range(max_chunks):
-        t0 = time.time()
-        carry = chunk_fn(carry, x0_c, up_c)
-        status_g = mesh.all_gather(carry.status, host=True)
-        running = (status_g == running_status) & valid_h
-        n_run = int(running.sum())
-        cur = valid_h.size
-        entry = log(i, n_run, cur, t0, carry)
-        if n_run == 0:
-            break
-        bucket = _bucket(n_run, min_bucket, k)
-        if bucket <= cur // 2:
-            tc = time.time()
-            compacted = True
-            b = cur // k
-            blk = slice(r * b, (r + 1) * b)
-            store = harvest(store, carry, x0_c, up_c, (valid_h & ~running)[blk],
-                            idx_h[blk])
-            sel = np.where(running)[0]
-            pad = np.concatenate([sel, np.repeat(sel[:1], bucket - sel.size)])
-            (carry, x0_c, up_c), sent = _exchange(mesh, (carry, x0_c, up_c), pad, b)
-            idx_h = idx_h[pad]
-            valid_h = np.zeros(bucket, bool)
-            valid_h[:sel.size] = True
-            entry.update(compact_s=round(time.time() - tc, 3), compact_bytes=sent)
+        with profiling.span('chunk', 'chunks'):
+            t0 = time.time()
+            carry = chunk_fn(carry, x0_c, up_c)
+            with profiling.sync('chunk.status'):
+                status_g = mesh.all_gather(carry.status, host=True)
+            running = (status_g == running_status) & valid_h
+            n_run = int(running.sum())
+            cur = valid_h.size
+            entry = log(i, n_run, cur, t0, carry)
+            if n_run == 0:
+                break
+            bucket = _bucket(n_run, min_bucket, k)
+            if bucket <= cur // 2:
+                with profiling.span('chunk.compact', 'compactions'):
+                    tc = time.time()
+                    compacted = True
+                    b = cur // k
+                    blk = slice(r * b, (r + 1) * b)
+                    store = harvest(store, carry, x0_c, up_c, (valid_h & ~running)[blk],
+                                    idx_h[blk])
+                    sel = np.where(running)[0]
+                    pad = np.concatenate([sel, np.repeat(sel[:1], bucket - sel.size)])
+                    (carry, x0_c, up_c), sent = _exchange(mesh, (carry, x0_c, up_c), pad, b)
+                    idx_h = idx_h[pad]
+                    valid_h = np.zeros(bucket, bool)
+                    valid_h[:sel.size] = True
+                    entry.update(compact_s=round(time.time() - tc, 3), compact_bytes=sent)
 
     if not compacted:
         return mesh.all_gather_rows(final_fn(carry, x0, up))
@@ -232,7 +241,8 @@ def _run_sharded(carry, x0, up, chunk_fn, final_fn, *, mesh, B0: int,
     # each game was finalized on exactly one rank: gather the stores and take its rows
     packed, layout = pack_rows(store, B0)
     all_rows = mesh.all_gather(packed)
-    owners = mesh.all_gather(torch.as_tensor(have, device=dev), host=True).reshape(k, B0)
+    with profiling.sync('chunk.owners'):
+        owners = mesh.all_gather(torch.as_tensor(have, device=dev), host=True).reshape(k, B0)
     if (owners.sum(0) != 1).any():
         raise RuntimeError('a game was finalized on no rank or on several')
     pick = torch.as_tensor(owners.argmax(0) * B0 + np.arange(B0), device=all_rows.device)

@@ -40,6 +40,7 @@ from dgsqp_torch.solvers.game_problem import GameProblem
 from dgsqp_torch.solvers.qp import solve_qp
 from dgsqp_torch.solvers.solver_types import DGSQPParams
 from dgsqp_torch.types import VehiclePrediction, VehicleState
+from dgsqp_torch.utils import profiling
 from dgsqp_torch.utils.math import regularized_convexification
 
 (RUNNING, CONV_ABS, CONV_REL, DIVERGED, QP_FAIL, MAX_IT, TIME_LIMIT,
@@ -358,12 +359,14 @@ class DGSQP(_HostInterface):
             else self.problem.evaluate
         return evaluate(u, l, x0, up, P, hessian=True)
 
+    @profiling.traced('qp', 'qp_calls')
     def _qp(self, Q, q, G, g, warm=None):
         p = self.params
-        Qh = regularized_convexification(Q, p.reg, method=p.conv_method,
-                                         ns_iters=p.conv_ns_iters,
-                                         ns_safety=p.conv_ns_safety,
-                                         ns_equilibrate=p.conv_ns_equil)
+        with profiling.span('qp.convexify'):
+            Qh = regularized_convexification(Q, p.reg, method=p.conv_method,
+                                             ns_iters=p.conv_ns_iters,
+                                             ns_safety=p.conv_ns_safety,
+                                             ns_equilibrate=p.conv_ns_equil)
         sol = solve_qp(Qh, q, G, -g, tol=p.qp_tol, max_iters=p.qp_max_iters,
                        polish_iters=p.qp_polish_iters, warm=warm,
                        indefinite=(p.conv_method == 'none'), box=self._qp_box,
@@ -382,6 +385,7 @@ class DGSQP(_HostInterface):
         dphi0 = _merit_dphi(du, l, dl, s, Q, q, G, g, mu, use_l1)
         return self._grid_ls(enabled, u, du, l, dl, s, ds, phi0, dphi0, mu, x0, up, P)
 
+    @profiling.traced('merit')
     def _grid_ls(self, enabled, u, du, l, dl, s, ds, phi0, dphi0, mu, x0, up, P=None):
         """Geometric trial grid alpha = tau^j, j < line_search_iters, evaluated at once;
         the first Armijo-accepted trial wins, else the last.  Only the enabled games are
@@ -392,7 +396,8 @@ class DGSQP(_HostInterface):
         alphas = torch.tensor(p.tau, dtype=self.dtype, device=self.device) ** \
             torch.arange(W, dtype=self.dtype, device=self.device)
         u_t, l_t, phi_out = u, l, phi0
-        sel = torch.nonzero(enabled).flatten()
+        with profiling.sync('merit.select'):
+            sel = torch.nonzero(enabled).flatten()
         nb = int(sel.numel())
         if nb == 0:
             return u_t, l_t, phi_out
@@ -516,7 +521,7 @@ class DGSQP(_HostInterface):
             t=torch.ones(nb, dtype=torch.long, device=u_k.device),
             u_cur=u_k + du_k, l_cur=l_k + dl_k, s_pred=s_k + ds_k, u_prev=u_k, l_prev=l_k,
             u_out=u_k, l_out=l_k, qp_n=torch.zeros(nb, dtype=torch.long, device=u_k.device))
-        while bool((c.mode != WD_DONE).any()):
+        while profiling.read_bool((c.mode != WD_DONE).any(), 'watchdog.mode'):
             c = body(c)
         return c.u_out, c.l_out, c.qp_n
 
@@ -556,6 +561,7 @@ class DGSQP(_HostInterface):
         rel_tol_req = 3
         use_bfgs = p.hessian_approximation == 'bfgs'
 
+        @profiling.traced('round', 'rounds')
         def body(c: _Carry) -> _Carry:
             running = c.status == RUNNING
             if use_bfgs:
@@ -645,6 +651,7 @@ class DGSQP(_HostInterface):
                       stat_best=full(math.inf), stall=full(0, torch.long), B=B0, B_u=B_u)
 
     # --------------------------------------------- flattened round machine
+    @profiling.traced('round', 'rounds')
     def _round(self, c: FlatCarry, x0, up, P=None) -> FlatCarry:
         """One lockstep round of the flat SQP+watchdog machine for the whole batch."""
         p = self.params
@@ -846,6 +853,7 @@ class DGSQP(_HostInterface):
 
     _compact_min_bucket = 16
 
+    @profiling.traced('solve', new_request=True)
     def solve_batch_chunked(self, u0, l0, x0, up, chunk_iters: int = 8,
                             max_chunks: Optional[int] = None, verbose: bool = False,
                             compact: bool = True, mesh=None) -> SQPResult:
@@ -870,13 +878,14 @@ class DGSQP(_HostInterface):
             max_chunks = max_chunks or (self.params.sqp_iters // chunk_iters + 2) * 8
             carry = self._init_carry(u0, l0, x0, up)
             compact = False
-            history_fn = lambda c: dict(iters_p50=float(np.median(c.it.cpu().numpy())),
-                                        stat_p50=float(np.median(c.stat.cpu().numpy())))
+            history_fn = lambda c: dict(
+                iters_p50=float(np.median(profiling.read_numpy(c.it, 'chunk.history'))),
+                stat_p50=float(np.median(profiling.read_numpy(c.stat, 'chunk.history'))))
 
         def chunk_fn(c, x, u_p):
             for _ in range(n_steps):
                 # steps with no running game change nothing: stop early
-                if not bool((c.status == RUNNING).any()):
+                if not profiling.read_bool((c.status == RUNNING).any(), 'round.status'):
                     break
                 c = step(c, x, u_p)
             return c
@@ -897,7 +906,7 @@ class DGSQP(_HostInterface):
         else:
             c = self._init_carry(u0, l0, x0, up, P)
             step = self._make_body(x0, up, P)
-        while bool((c.status == RUNNING).any()):
+        while profiling.read_bool((c.status == RUNNING).any(), 'round.status'):
             c = step(c)
         return self._finalize(c, x0, up, P)
 

@@ -42,6 +42,7 @@ from dgsqp_torch.solvers.game_problem import GameProblem
 from dgsqp_torch.solvers.qp import solve_qp
 from dgsqp_torch.solvers.solver_types import DGSQPV2Params
 from dgsqp_torch.types import VehicleState
+from dgsqp_torch.utils import profiling
 from dgsqp_torch.utils.math import nearest_pd, nearest_pd_ns
 
 
@@ -206,25 +207,28 @@ class DGSQPV2(_HostInterface):
         mu = torch.abs(d_c) / ((1 - rho) * torch.clamp(vio, min=1e-300))
         return torch.where(vio > thresh, mu, 0.0)
 
+    @profiling.traced('qp', 'qp_calls')
     def _qp(self, Q, q, G, g, reg):
         p = self.params
         method = p.conv_method
-        eye = torch.eye(self.n_dec, dtype=self.dtype, device=self.device)
-        shift = reg[:, None, None] * eye
-        if method == 'ns':
-            Qh = nearest_pd_ns(Q, iters=p.conv_ns_iters, safety=p.conv_ns_safety,
-                               equilibrate=p.conv_ns_equil) + shift
-        elif method == 'none':
-            # indefinite path: symmetrize + Levenberg shift only, no PSD projection; the
-            # QP keeps the exact game Hessian and factorizes by Levenberg-shifted LU
-            Qh = 0.5 * (Q + Q.transpose(-1, -2)) + shift
-        else:
-            Qh = nearest_pd(Q) + shift
+        with profiling.span('qp.convexify'):
+            eye = torch.eye(self.n_dec, dtype=self.dtype, device=self.device)
+            shift = reg[:, None, None] * eye
+            if method == 'ns':
+                Qh = nearest_pd_ns(Q, iters=p.conv_ns_iters, safety=p.conv_ns_safety,
+                                   equilibrate=p.conv_ns_equil) + shift
+            elif method == 'none':
+                # indefinite path: symmetrize + Levenberg shift only, no PSD projection;
+                # the QP keeps the exact game Hessian and factorizes by Levenberg-shifted LU
+                Qh = 0.5 * (Q + Q.transpose(-1, -2)) + shift
+            else:
+                Qh = nearest_pd(Q) + shift
         sol = solve_qp(Qh, q, G, -g, tol=p.qp_tol, max_iters=50,
                        indefinite=(method == 'none'), box=self._qp_box,
                        pairs=self._qp_pairs, correctors=p.qp_correctors)
         return sol.x, sol.lam, sol.ok
 
+    @profiling.traced('merit')
     def _line_search(self, enabled, u, du, l, dl, s, mu, mem_max, x0, up, P, P_fn=None,
                      eval0=None, ck_ref=None):
         """v2 backtracking line search as a trial grid alpha = tau^j.
@@ -287,7 +291,8 @@ class DGSQPV2(_HostInterface):
 
         u_t, l_t = u, l
         phi1 = self._full(u.shape[0], math.inf)
-        sel = torch.nonzero(enabled).flatten()
+        with profiling.sync('merit.select'):
+            sel = torch.nonzero(enabled).flatten()
         nb = int(sel.numel())
         if nb == 0:
             return u_t, l_t, phi1
@@ -346,6 +351,7 @@ class DGSQPV2(_HostInterface):
         approx_always = (self._approx_update is not None
                          and p.approximation_eval == 'always')
 
+        @profiling.traced('round', 'rounds')
         def body(c: _CarryV2) -> _CarryV2:
             B = c.u.shape[0]
             running = c.status == RUNNING
@@ -446,7 +452,8 @@ class DGSQPV2(_HostInterface):
             u_full = src_u + src_du
             l_full = src_l + src_dl
             phi_full = self._full(B, math.inf)
-            sel = torch.nonzero(m_step & keep_going).flatten()
+            with profiling.sync('trial.select'):
+                sel = torch.nonzero(m_step & keep_going).flatten()
             if sel.numel():
                 x0_f, up_f = x0[sel], up[sel]
                 if approx_always:
@@ -602,13 +609,15 @@ class DGSQPV2(_HostInterface):
         """Apply the round until no game is RUNNING (or ``max_rounds`` rounds)."""
         body = self._make_body(x0, up, P)
         rounds = 0
-        while bool((c.status == RUNNING).any()) and (max_rounds is None or rounds < max_rounds):
+        while profiling.read_bool((c.status == RUNNING).any(), 'round.status') and \
+                (max_rounds is None or rounds < max_rounds):
             c = body(c)
             rounds += 1
         return c
 
     _compact_min_bucket = 16
 
+    @profiling.traced('solve', new_request=True)
     def solve_batch_chunked(self, u0, l0, x0, up, chunk_iters: int = 8,
                             max_chunks: Optional[int] = None, verbose: bool = False,
                             compact: Optional[bool] = None, mesh=None) -> SQPResult:

@@ -39,6 +39,7 @@ import torch
 from torch.func import vmap
 
 from dgsqp_torch.dynamics.multi_agent import MultiAgentDynamicsModel
+from dgsqp_torch.utils import profiling
 
 
 def _n_args(fn: Callable) -> int:
@@ -465,9 +466,11 @@ class GameProblem:
         """Stacked KKT stationarity map F(u, l) = q + G'l."""
         return self.merit_terms(u, l, x0, u_prev, P)[0]
 
+    @profiling.traced('evaluate', 'evaluates')
     def evaluate(self, u, l, x0, u_prev, P=None, hessian: bool = True):
         """Condensed derivatives: (Q, q, G, g, x) with hessian=True, else (q, G, g, x).
         Shapes (B, n_dec, n_dec), (B, n_dec), (B, n_c, n_dec), (B, n_c), (B, N+1, n_q)."""
+        profiling.count('evaluates.ad.hessian' if hessian else 'evaluates.ad.first')
         if not hessian:
             def fc(uu):
                 Js, C, x = self._costs_and_constraints(uu, x0, u_prev, P)
@@ -554,6 +557,7 @@ class GameProblem:
                             term_w=term_w)
         return self._dp_sel
 
+    @profiling.traced('evaluate', 'evaluates')
     def evaluate_dp(self, u, l, x0, u_prev, P=None, hessian: bool = True):
         """Stage-structured (DP) evaluation: the same ``(Q, q, G, g, x)`` as
         :meth:`evaluate` (``(q, G, g, x)`` without the Hessian), assembled from
@@ -568,6 +572,7 @@ class GameProblem:
         The horizon couples through the N-step recursions for X and the adjoints, and
         products against the stack Z_k = [X_k; S_k; Sm_k].
         """
+        profiling.count('evaluates.dp.hessian' if hessian else 'evaluates.dp.first')
         N, M = self.N, self.M
         nq, nu, nd = self.n_q, self.n_u, self.n_dec
         nz = nq + nu

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from dgsqp_torch.ops.linalg import cho_solve, cholesky
+from dgsqp_torch.utils import profiling
 
 
 class QPSolution(NamedTuple):
@@ -301,16 +302,18 @@ def _solve_scaled(Q, q, A, b, tol, max_iters, polish_iters, warm, box, pairs,
     res = torch.full((B,), torch.inf, dtype=dtype, device=dev)
     # each game freezes once done or out of iterations (the vmapped while_loop's select)
     active = ~done & (it < max_iters)
-    while bool(active.any()):
-        x_n, lam_n, t_n, done_n, res_n = body(x, lam, t)
-        act = active[:, None]
-        x = torch.where(act, x_n, x)
-        lam = torch.where(act, lam_n, lam)
-        t = torch.where(act, t_n, t)
-        it = torch.where(active, it + 1, it)
-        done = torch.where(active, done_n, done)
-        res = torch.where(active, res_n, res)
-        active = ~done & (it < max_iters)
+    with profiling.span('qp.ipm'):
+        while profiling.read_bool(active.any(), 'ipm.active'):
+            profiling.count('ipm_iters')
+            x_n, lam_n, t_n, done_n, res_n = body(x, lam, t)
+            act = active[:, None]
+            x = torch.where(act, x_n, x)
+            lam = torch.where(act, lam_n, lam)
+            t = torch.where(act, t_n, t)
+            it = torch.where(active, it + 1, it)
+            done = torch.where(active, done_n, done)
+            res = torch.where(active, res_n, res)
+            active = ~done & (it < max_iters)
 
     if indefinite or polish_iters == 0:
         # no active-set polish; certify the IPM point
@@ -321,77 +324,78 @@ def _solve_scaled(Q, q, A, b, tol, max_iters, polish_iters, warm, box, pairs,
         return QPSolution(x, unperm(lam), unperm(t_out), ok, it, res)
 
     # ---- polish: Schur-complement PDAS on the top-K candidate rows
-    neg_tol = torch.full((B,), 1e-9, dtype=dtype, device=dev) if f64 \
-        else 1e-4 * (1.0 + _amax(torch.abs(lam)))
+    with profiling.span('qp.polish'):
+        neg_tol = torch.full((B,), 1e-9, dtype=dtype, device=dev) if f64 \
+            else 1e-4 * (1.0 + _amax(torch.abs(lam)))
 
-    def certify(x_p, lam_p):
-        Ax_b = _mv(A, x_p) - b
-        r_d_p = _mv(Q, x_p) + q + _mtv(A, lam_p)
-        res_p = torch.maximum(_amax(torch.abs(r_d_p)),
-                              torch.maximum(_amax(torch.clamp(Ax_b, min=0.0)),
-                                            _amax(torch.abs(lam_p * Ax_b))))
-        ok_p = torch.isfinite(res_p) & (torch.amin(lam_p, dim=-1) > -neg_tol)
-        return torch.where(ok_p, res_p, torch.inf)
+        def certify(x_p, lam_p):
+            Ax_b = _mv(A, x_p) - b
+            r_d_p = _mv(Q, x_p) + q + _mtv(A, lam_p)
+            res_p = torch.maximum(_amax(torch.abs(r_d_p)),
+                                  torch.maximum(_amax(torch.clamp(Ax_b, min=0.0)),
+                                                _amax(torch.abs(lam_p * Ax_b))))
+            ok_p = torch.isfinite(res_p) & (torch.amin(lam_p, dim=-1) > -neg_tol)
+            return torch.where(ok_p, res_p, torch.inf)
 
-    r_d, r_p, mu = residuals(x, lam, t)
-    res0 = torch.maximum(torch.maximum(_amax(torch.abs(r_d)), _amax(torch.abs(r_p))), mu)
+        r_d, r_p, mu = residuals(x, lam, t)
+        res0 = torch.maximum(torch.maximum(_amax(torch.abs(r_d)), _amax(torch.abs(r_p))), mu)
 
-    K = int(min(m, max(48, n // 2 + 14)))
-    score = torch.maximum(lam - t, _mv(A, x) - b)
-    # lax.top_k breaks ties toward the lower index: a stable descending sort does too
-    cand = torch.sort(score, dim=-1, descending=True, stable=True).indices[:, :K]
-    A_k = torch.gather(A, 1, cand[:, :, None].expand(B, K, n))
-    b_k = torch.gather(b, 1, cand)
-    act0 = (torch.gather(lam, 1, cand) > torch.gather(t, 1, cand)).to(dtype)
-    pad = -(-K // 8) * 8 - K
-    if pad:
-        # always-inactive pad rows (0'x <= 1) scattered to the sentinel index m
-        A_k = torch.cat([A_k, A_k.new_zeros(B, pad, n)], dim=1)
-        b_k = torch.cat([b_k, b_k.new_ones(B, pad)], dim=1)
-        cand = torch.cat([cand, cand.new_full((B, pad), m)], dim=1)
-        act0 = torch.cat([act0, act0.new_zeros(B, pad)], dim=1)
-        K = K + pad
+        K = int(min(m, max(48, n // 2 + 14)))
+        score = torch.maximum(lam - t, _mv(A, x) - b)
+        # lax.top_k breaks ties toward the lower index: a stable descending sort does too
+        cand = torch.sort(score, dim=-1, descending=True, stable=True).indices[:, :K]
+        A_k = torch.gather(A, 1, cand[:, :, None].expand(B, K, n))
+        b_k = torch.gather(b, 1, cand)
+        act0 = (torch.gather(lam, 1, cand) > torch.gather(t, 1, cand)).to(dtype)
+        pad = -(-K // 8) * 8 - K
+        if pad:
+            # always-inactive pad rows (0'x <= 1) scattered to the sentinel index m
+            A_k = torch.cat([A_k, A_k.new_zeros(B, pad, n)], dim=1)
+            b_k = torch.cat([b_k, b_k.new_ones(B, pad)], dim=1)
+            cand = torch.cat([cand, cand.new_full((B, pad), m)], dim=1)
+            act0 = torch.cat([act0, act0.new_zeros(B, pad)], dim=1)
+            K = K + pad
 
-    # active-set independent pieces hoisted out of the PDAS loop
-    A_kT = A_k.transpose(-1, -2).contiguous()
-    Lq = cholesky(Q.contiguous())
-    Y = cho_solve(Lq, A_kT)                            # (B, n, K)
-    S_full = A_k @ Y                                   # (B, K, K)
-    xq = cho_solve(Lq, (-q).contiguous())
-    r0 = _mv(A_k, xq)
-    delta = 1e-12 if f64 else 1e-7
-    eyeK = torch.eye(K, dtype=dtype, device=dev)
+        # active-set independent pieces hoisted out of the PDAS loop
+        A_kT = A_k.transpose(-1, -2).contiguous()
+        Lq = cholesky(Q.contiguous())
+        Y = cho_solve(Lq, A_kT)                            # (B, n, K)
+        S_full = A_k @ Y                                   # (B, K, K)
+        xq = cho_solve(Lq, (-q).contiguous())
+        r0 = _mv(A_k, xq)
+        delta = 1e-12 if f64 else 1e-7
+        eyeK = torch.eye(K, dtype=dtype, device=dev)
 
-    act_k, best_x, best_lam, best_res = act0, x, lam, res0
-    for _ in range(polish_iters):
-        a = act_k
-        Sm = a[:, :, None] * a[:, None, :] * S_full + (1.0 - a)[:, None, :] * eyeK \
-            + (delta * a)[:, None, :] * eyeK
-        Ls = cholesky(Sm.contiguous())
-        lam_k = cho_solve(Ls, (a * (r0 - b_k)).contiguous())
-        x_c = xq - _mv(Y, a * lam_k)
-        # full-KKT iterative refinement (triangular solves + matvecs)
-        for _r in range(2):
-            e1 = -q - _mv(Q, x_c) - _mv(A_kT, a * lam_k)
-            w = cho_solve(Lq, e1.contiguous())
-            rhs = a * (_mv(A_k, w) + _mv(A_k, x_c) - b_k)
-            dlam = cho_solve(Ls, rhs.contiguous())
-            x_c = x_c + w - _mv(Y, a * dlam)
-            lam_k = lam_k + dlam
-        # scatter into m+1 slots and drop the sentinel slot m
-        lam_c = lam.new_zeros(B, m + 1).scatter(1, cand, a * lam_k)[:, :m]
-        res_c = certify(x_c, lam_c)
-        better = res_c < best_res
-        bt = better[:, None]
-        best_x = torch.where(bt, x_c, best_x)
-        best_lam = torch.where(bt, torch.clamp(lam_c, min=0.0), best_lam)
-        best_res = torch.where(better, res_c, best_res)
-        viol_k = _mv(A_k, x_c) - b_k
-        act_k = (a * lam_k + viol_k > 0).to(dtype)
+        act_k, best_x, best_lam, best_res = act0, x, lam, res0
+        for _ in range(polish_iters):
+            a = act_k
+            Sm = a[:, :, None] * a[:, None, :] * S_full + (1.0 - a)[:, None, :] * eyeK \
+                + (delta * a)[:, None, :] * eyeK
+            Ls = cholesky(Sm.contiguous())
+            lam_k = cho_solve(Ls, (a * (r0 - b_k)).contiguous())
+            x_c = xq - _mv(Y, a * lam_k)
+            # full-KKT iterative refinement (triangular solves + matvecs)
+            for _r in range(2):
+                e1 = -q - _mv(Q, x_c) - _mv(A_kT, a * lam_k)
+                w = cho_solve(Lq, e1.contiguous())
+                rhs = a * (_mv(A_k, w) + _mv(A_k, x_c) - b_k)
+                dlam = cho_solve(Ls, rhs.contiguous())
+                x_c = x_c + w - _mv(Y, a * dlam)
+                lam_k = lam_k + dlam
+            # scatter into m+1 slots and drop the sentinel slot m
+            lam_c = lam.new_zeros(B, m + 1).scatter(1, cand, a * lam_k)[:, :m]
+            res_c = certify(x_c, lam_c)
+            better = res_c < best_res
+            bt = better[:, None]
+            best_x = torch.where(bt, x_c, best_x)
+            best_lam = torch.where(bt, torch.clamp(lam_c, min=0.0), best_lam)
+            best_res = torch.where(better, res_c, best_res)
+            viol_k = _mv(A_k, x_c) - b_k
+            act_k = (a * lam_k + viol_k > 0).to(dtype)
 
-    ok = (best_res < 1e4 * tol * scale_q) & torch.isfinite(best_res)
-    t_out = torch.clamp(b - _mv(A, best_x), min=eps_floor)
-    return QPSolution(best_x, unperm(best_lam), unperm(t_out), ok, it, best_res)
+        ok = (best_res < 1e4 * tol * scale_q) & torch.isfinite(best_res)
+        t_out = torch.clamp(b - _mv(A, best_x), min=eps_floor)
+        return QPSolution(best_x, unperm(best_lam), unperm(t_out), ok, it, best_res)
 
 
 def solve_qp_batch(Q, q, A, b, tol: float = 1e-8, max_iters: int = 50) -> QPSolution:

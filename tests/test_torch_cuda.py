@@ -1,4 +1,5 @@
-"""The CUDA wrappers of ``dgsqp_torch.ops.linalg``: launch counting and input checks.
+"""The CUDA wrappers of ``dgsqp_torch.ops.linalg``: launch counting and input checks;
+the port's tracer on the clock of ``torch.profiler``'s device trace.
 
 The kernels are held against their plain versions, at every main-path shape, by the
 ``kernels`` phase of ``chip_smoke.py``; these tests cover what that phase does not.  They
@@ -12,6 +13,10 @@ import pytest
 import torch
 
 from dgsqp_torch.ops import linalg
+from dgsqp_torch.utils import profiling
+
+# the most a device event of a traced body may lie outside the body's host span
+CLOCK_TOL_NS = 50_000
 
 
 @pytest.mark.cuda
@@ -275,3 +280,37 @@ def test_race_control_step_on_the_card_matches_cpu_float64():
             assert all(b > a for a, b in zip(counts, now)), (counts, now)
     np.testing.assert_allclose(out['cuda'][0], out['cpu'][0], rtol=0, atol=RACE_ATOL)
     assert out['cuda'][1] == out['cpu'][1]
+
+
+@pytest.mark.cuda
+def test_tracer_spans_share_the_profilers_clock():
+    """A span of the port's tracer whose body launches a few kernels and ends in
+    ``torch.cuda.synchronize()``, recorded beside ``torch.profiler``'s device trace:
+    every device event of the body lies inside the span's [start, end], within
+    ``CLOCK_TOL_NS`` (50 us)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn(512, 512, device='cuda')
+    y = torch.tanh(x @ x)
+    torch.cuda.synchronize()
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, profiling.tracing():
+            with profiling.span('body'):
+                for _ in range(4):
+                    y = torch.tanh(y @ x)
+                torch.cuda.synchronize()
+        (body,) = profiling.snapshot()['spans']
+    finally:
+        profiling.reset()
+    events = []
+    for e in prof.profiler.kineto_results.events():
+        if 'cuda' in str(e.device_type()).lower():
+            start, dur = (e.start_ns(), e.duration_ns()) if hasattr(e, 'start_ns') \
+                else (e.start_us() * 1000, e.duration_us() * 1000)
+            events.append((int(start), int(start + dur)))
+    assert len(events) >= 8, events
+    early = body['start_ns'] - min(s for s, _ in events)
+    late = max(e for _, e in events) - body['end_ns']
+    assert early <= CLOCK_TOL_NS and late <= CLOCK_TOL_NS, (early, late)

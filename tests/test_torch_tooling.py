@@ -8,7 +8,7 @@
 * ``scripts/torch_diagnose_failures.py``: ``classify_trace`` labels traces drawn with
   numpy as the JAX script's does; ``trace_failures`` traces the padded failures and cuts
   the trace to them; ``classify_failures`` reports every failure.
-* ``dgsqp_torch.utils.profiling``: ``Timers``, ``block_and_time``, ``device_trace``.
+* ``dgsqp_torch.utils.profiling``: ``Timers``, ``device_trace``.
 * ``scripts/torch_analyze_regularization.py`` on a small synthetic study directory,
   ``scripts/torch_merge_oracles.py`` against the JAX script's ``merge``, and
   ``scripts/torch_stalled_oracle_crosstab.py``'s cross-tab on synthetic runs.
@@ -47,7 +47,7 @@ from dgsqp_torch.harness.bench_setup import build_bench_solver
 from dgsqp_torch.harness.mc_study import MCResults
 from dgsqp_torch.solvers.dgsqp import (CONV_ABS, CONV_REL, DIVERGED, MAX_IT, STALLED,
                                        STATUS_MSG)
-from dgsqp_torch.utils.profiling import Timers, block_and_time, device_trace
+from dgsqp_torch.utils.profiling import Timers, device_trace
 
 from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -160,8 +160,6 @@ def test_profiling_helpers(tmp_path):
     s = timers.summary()
     assert list(s) == ['a', 'b'] and s['a']['count'] == 3 and s['b']['count'] == 1
     assert s['a']['total_s'] >= 0.003 and s['a']['mean_s'] == s['a']['total_s'] / 3
-    out, seconds = block_and_time(lambda x: {'y': [x * 2]}, torch.ones(3))
-    assert torch.equal(out['y'][0], torch.full((3,), 2.0)) and seconds >= 0
     with device_trace(None) as prof:
         assert prof is None
     with device_trace(str(tmp_path)) as prof:
