@@ -155,7 +155,10 @@ kernels and of ``dynamic_path`` for ``dyn_step``, ``launches_by_path`` has every
 ``race_path`` and ``sharded_path`` (summed over its ranks) among them),
 and last ``{"ok": true, "device": ...}``.  Every line also goes to
 ``build/chip_smoke.jsonl`` (the kernels line alone is longer than a caller may see of
-the output's tail).
+the output's tail).  Each line carries ``evaluate_graph``: ``GameProblem.evaluate``'s
+calls in its process since the line before, eager, captured into a CUDA graph or
+replayed (the port's tracer is on in every process of this script for these counters;
+the sharded path's ranks and the bench CLI, processes of their own, are not counted).
 Any failed check raises and the script exits non-zero; without a card it exits
 non-zero before printing any result.
 """
@@ -355,7 +358,22 @@ SHARDED_MIN_CORES = 6
 LOG = Path(__file__).resolve().parent / 'build' / 'chip_smoke.jsonl'
 
 
+def graph_calls() -> dict:
+    """``GameProblem.evaluate``'s calls in this process since the last line, by how each
+    ran (``dgsqp_torch/utils/cuda_graphs.py``): eager, captured or replayed.  Empties the
+    tracer, which every process of this script keeps on for these counters."""
+    from dgsqp_torch.utils import profiling
+    calls = dict.fromkeys(('eager', 'capture', 'replay'), 0)
+    for counters in profiling.TRACER.counters.values():
+        for k in calls:
+            calls[k] += counters.get('evaluates.graph.' + k, 0)
+    profiling.reset()
+    return calls
+
+
 def emit(obj):
+    if 'evaluate_graph' not in obj:     # a child's line, emitted again, has its own
+        obj = dict(obj, evaluate_graph=graph_calls())
     line = json.dumps(obj)
     print(line, flush=True)
     with open(LOG, 'a') as f:
@@ -2104,9 +2122,11 @@ def main():
         sys.exit(2)
     from dgsqp_torch.harness.bench_setup import build_bench_batch, build_bench_solver
     from dgsqp_torch.harness.scenarios import build_chicane_scenario
+    from dgsqp_torch.utils import profiling
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    profiling.enable()
     LOG.parent.mkdir(parents=True, exist_ok=True)
     LOG.write_text('')
     t_start = time.time()
@@ -2181,9 +2201,11 @@ def child_process(log_name, phases):
     """The body of a child process: its lines go to stdout (the parent emits them into
     the log) and to a log of its own."""
     import torch
+    from dgsqp_torch.utils import profiling
     global LOG
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    profiling.enable()
     LOG = LOG.with_name(log_name)
     LOG.parent.mkdir(parents=True, exist_ok=True)
     LOG.write_text('')

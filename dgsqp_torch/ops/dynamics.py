@@ -34,7 +34,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-from dgsqp_torch.ops.linalg import _check_cuda, _load, _raise_on
+from dgsqp_torch.ops.linalg import _check_cuda, _load, _raise_on, register_launches
 
 # model kinds of csrc/dyn_step.cu
 MODEL_KINDS = {'DynamicBicycle': 0, 'DynamicCLBicycle': 1, 'DynamicBicycleCombined': 2,
@@ -327,6 +327,7 @@ def dyn_step(model, q, u, order: int, dt=None, M=None, method=None):
 dyn_step.launches = 0
 dyn_step.launches_by_order = {}
 dyn_step.launches_by_shape = {}
+register_launches(dyn_step, 'launches', 'launches_by_order', 'launches_by_shape')
 
 
 def _points(q, u):

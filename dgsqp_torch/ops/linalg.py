@@ -15,7 +15,11 @@ counts its kernel launches in a plain integer attribute, ``cholesky.launches`` a
 ``cho_solve.launches``, the same launches by matrix size n in a dict,
 ``cholesky.launches_by_n`` and ``cho_solve.launches_by_n``, and the times it raised a
 kernel's shared-memory limit, ``cholesky.attr_sets`` and ``cho_solve.attr_sets``: once
-per kernel, dtype, device and largest size seen, not once per launch.
+per kernel, dtype, device and largest size seen, not once per launch.  Every wrapper of a
+kernel of ``csrc/`` (these two, ``ops/dynamics.py`` ``dyn_step``) names its launch
+counters with :func:`register_launches`; :func:`launch_counts` reads them all and
+:func:`add_launches` adds to them, for code that replays launches it did not make (the
+CUDA graphs of ``utils/cuda_graphs.py``).
 
 ``chol.cu`` factors by panels of ``CHOL_PANEL`` columns.  ``cho_solve.cu`` holds two
 kernels and :func:`cho_solve_plan` picks one from (n, k, dtype) alone: up to
@@ -54,8 +58,39 @@ WARP_PATH_LOADERS = 8    # fewest warps of a warp-path block: all of them copy L
 COLUMN_TILE = 64        # columns (threads) per block on the column path, 32 if it must
 
 _libs = {}
+_launch_counters = []   # (wrapper, names of its launch counters)
 _smem_limits = {}       # device index -> opt-in shared memory per block
 _attr_smem = {}         # (kernel, variant, dtype, device index) -> largest limit set
+
+
+def register_launches(wrapper, *names):
+    """Name ``wrapper``'s launch counters: its attributes ``names``, each an integer or
+    a dict of integers by shape."""
+    _launch_counters.append((wrapper, names))
+
+
+def launch_counts() -> dict:
+    """Every registered launch counter, flat: {(wrapper, counter, key): n}, ``key``
+    None for an integer and the entry's key in a dict."""
+    out = {}
+    for wrapper, names in _launch_counters:
+        for name in names:
+            v = getattr(wrapper, name)
+            if isinstance(v, dict):
+                out.update(((wrapper, name, key), n) for key, n in v.items())
+            else:
+                out[(wrapper, name, None)] = v
+    return out
+
+
+def add_launches(counts: dict, sign: int = 1):
+    """Add ``sign`` times ``counts`` (in :func:`launch_counts`' form) to the counters."""
+    for (wrapper, name, key), n in counts.items():
+        if key is None:
+            setattr(wrapper, name, getattr(wrapper, name) + sign * n)
+        else:
+            d = getattr(wrapper, name)
+            d[key] = d.get(key, 0) + sign * n
 
 
 def _nvcc() -> str:
@@ -248,6 +283,7 @@ def cholesky(A):
 cholesky.launches = 0
 cholesky.launches_by_n = {}
 cholesky.attr_sets = 0
+register_launches(cholesky, 'launches', 'launches_by_n')
 
 
 def cho_solve(L, b):
@@ -288,3 +324,4 @@ def cho_solve(L, b):
 cho_solve.launches = 0
 cho_solve.launches_by_n = {}
 cho_solve.attr_sets = 0
+register_launches(cho_solve, 'launches', 'launches_by_n')

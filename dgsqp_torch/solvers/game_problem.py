@@ -40,6 +40,7 @@ from torch.func import vmap
 
 from dgsqp_torch.dynamics.multi_agent import MultiAgentDynamicsModel
 from dgsqp_torch.utils import profiling
+from dgsqp_torch.utils.cuda_graphs import GraphCache
 
 
 def _n_args(fn: Callable) -> int:
@@ -160,6 +161,7 @@ class GameProblem:
         self._count_constraints()
         self._build_plan()
         self._dp_sel = None
+        self._graphs = GraphCache('evaluates.graph')
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -469,8 +471,17 @@ class GameProblem:
     @profiling.traced('evaluate', 'evaluates')
     def evaluate(self, u, l, x0, u_prev, P=None, hessian: bool = True):
         """Condensed derivatives: (Q, q, G, g, x) with hessian=True, else (q, G, g, x).
-        Shapes (B, n_dec, n_dec), (B, n_dec), (B, n_c, n_dec), (B, n_c), (B, N+1, n_q)."""
+        Shapes (B, n_dec, n_dec), (B, n_dec), (B, n_c, n_dec), (B, n_c), (B, N+1, n_q).
+
+        On the card, from the second call at an input signature (shapes, strides, dtypes,
+        ``l`` or None, ``hessian``, ``P``'s structure) on, a call replays a CUDA graph of
+        these operations captured at that signature (``utils/cuda_graphs.py``; counters
+        ``evaluates.graph.*``)."""
         profiling.count('evaluates.ad.hessian' if hessian else 'evaluates.ad.first')
+        return self._graphs(self._evaluate, (u, l, x0, u_prev, P), hessian)
+
+    def _evaluate(self, u, l, x0, u_prev, P, hessian: bool):
+        """:meth:`evaluate`'s operations, run eagerly."""
         if not hessian:
             def fc(uu):
                 Js, C, x = self._costs_and_constraints(uu, x0, u_prev, P)

@@ -1,5 +1,8 @@
 """The CUDA wrappers of ``dgsqp_torch.ops.linalg``: launch counting and input checks;
-the port's tracer on the clock of ``torch.profiler``'s device trace.
+the port's tracer on the clock of ``torch.profiler``'s device trace; ``evaluate``'s CUDA
+graphs (``dgsqp_torch.utils.cuda_graphs``): replays bit for bit the eager call, fresh
+outputs, one graph a signature, eager inside an outer capture, launch counts kept, eager
+for good where a capture raises.
 
 The kernels are held against their plain versions, at every main-path shape, by the
 ``kernels`` phase of ``chip_smoke.py``; these tests cover what that phase does not.  They
@@ -13,7 +16,7 @@ import pytest
 import torch
 
 from dgsqp_torch.ops import linalg
-from dgsqp_torch.utils import profiling
+from dgsqp_torch.utils import cuda_graphs, profiling
 
 # the most a device event of a traced body may lie outside the body's host span
 CLOCK_TOL_NS = 50_000
@@ -314,3 +317,179 @@ def test_tracer_spans_share_the_profilers_clock():
     early = body['start_ns'] - min(s for s, _ in events)
     late = max(e for _, e in events) - body['end_ns']
     assert early <= CLOCK_TOL_NS and late <= CLOCK_TOL_NS, (early, late)
+
+
+# ------------------------------------------------------- evaluate's CUDA graphs
+def _chicane_inputs(sc, problem, B, seed=0):
+    """(u, l, x0, u_prev) of B chicane games (N = 25) in float32 on the card: the
+    study's sampler and warm start, duals drawn in [0, 1)."""
+    from dgsqp_torch.harness.samplers import sample_duel_initial_conditions
+    x0, u_ws, _, _ = sample_duel_initial_conditions(sc, B, seed=seed, dtype=torch.float32,
+                                                    device='cuda')
+    u = problem.stage_to_u(torch.as_tensor(u_ws, dtype=torch.float32, device='cuda'))
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    l = torch.rand(B, problem.n_c_total, generator=gen, device='cuda')
+    up = torch.zeros(B, sc.joint_model.n_u, device='cuda')
+    return u, l, torch.as_tensor(x0, dtype=torch.float32, device='cuda'), up
+
+
+def _chicane(B=256):
+    """A fresh chicane ``GameProblem`` (no graph yet), its scenario and B games."""
+    from dgsqp_torch.harness.scenarios import build_chicane_scenario
+    from dgsqp_torch.solvers.game_problem import GameProblem
+    sc = build_chicane_scenario(N=25, theta_deg=45.0)
+    problem = GameProblem(sc.joint_model, sc.costs, sc.agent_constraints,
+                          sc.shared_constraints, sc.bounds, sc.N, dtype=torch.float32,
+                          device='cuda')
+    return sc, problem, _chicane_inputs(sc, problem, B)
+
+
+def _graph_counts():
+    c = profiling.snapshot()['counters'].get(0, {})
+    return tuple(c.get('evaluates.graph.' + k, 0) for k in ('eager', 'capture', 'replay'))
+
+
+def _equal(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.fixture
+def counted():
+    """The tracer on and empty, so that the test reads ``evaluates.graph.*``."""
+    profiling.reset()
+    with profiling.tracing():
+        yield
+    profiling.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hessian', [True, False])
+def test_evaluate_replay_matches_eager_to_the_bit(hessian, counted):
+    """The chicane at N = 25, B = 256, float32: the first call (eager), the second
+    (capture, then replay) and the third (replay) give the same Q, q, G, g and x bit for
+    bit; the first-order branch with ``l=None``."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    _, problem, (u, l, x0, up) = _chicane()
+    outs = [problem.evaluate(u, l if hessian else None, x0, up, hessian=hessian)
+            for _ in range(3)]
+    assert _graph_counts() == (1, 1, 1)
+    assert len(outs[0]) == (5 if hessian else 4)
+    assert _equal(outs[0], outs[1]) and _equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+def test_evaluate_replay_of_new_inputs_gives_their_eager_answer(counted):
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    sc, problem, call = _chicane()
+    first = [problem.evaluate(*call) for _ in range(2)][-1]
+    new = _chicane_inputs(sc, problem, 256, seed=1)
+    got = problem.evaluate(*new)
+    assert _graph_counts() == (1, 1, 1)
+    assert _equal(got, problem._evaluate(*new, None, True))
+    assert not torch.equal(got[0], first[0])
+
+
+@pytest.mark.cuda
+def test_evaluate_replays_return_fresh_tensors(counted):
+    """Two replays' outputs share no storage with each other or with the graph's
+    static buffers, and a later replay leaves an earlier call's outputs as they were."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    sc, problem, call = _chicane()
+    outs = [problem.evaluate(*call) for _ in range(3)]
+    kept = [t.clone() for t in outs[2]]
+    outs.append(problem.evaluate(*_chicane_inputs(sc, problem, 256, seed=1)))
+    assert _graph_counts() == (1, 1, 2)
+    (graph,) = problem._graphs._entries.values()
+    ptrs = lambda ts: {t.untyped_storage().data_ptr() for t in ts}
+    buffers = ptrs(graph.inputs + graph.outputs)
+    assert not ptrs(outs[2]) & ptrs(outs[3])
+    assert not (ptrs(outs[2]) | ptrs(outs[3])) & buffers
+    assert _equal(outs[2], kept)
+
+
+@pytest.mark.cuda
+def test_evaluate_captures_a_graph_for_each_batch_size(counted):
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    sc, problem, call = _chicane()
+    small = _chicane_inputs(sc, problem, 128, seed=2)
+    for _ in range(3):
+        problem.evaluate(*call)
+    outs = [problem.evaluate(*small) for _ in range(3)]
+    problem.evaluate(*call)
+    assert _graph_counts() == (2, 2, 3)
+    assert len(problem._graphs._entries) == 2
+    assert outs[0][0].shape[0] == 128 and _equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+def test_evaluate_inside_an_outer_capture_runs_eager(counted):
+    """Captured around by a caller (``chip_smoke.py`` ``graph_ms``,
+    ``scripts/torch_profile_batch_scaling.py``), ``evaluate`` issues its own operations
+    into the caller's graph, which replays them to the eager answer."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    _, problem, call = _chicane()
+    want = [problem.evaluate(*call) for _ in range(2)][0]
+    outer = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(outer):
+        out = problem.evaluate(*call)
+    outer.replay()
+    torch.cuda.synchronize()
+    assert _graph_counts() == (2, 1, 0)
+    assert _equal(out, want)
+
+
+@pytest.mark.cuda
+def test_dynamic_duel_evaluate_replay_counts_its_kernel_launches(counted):
+    """The exact dynamic duel (N = 15, 4 games): a replayed ``evaluate`` adds to
+    ``dyn_step``'s launch counters what its eager call adds, and gives its answer."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    from chip_smoke import dynamic_solver, study_batch
+    from dgsqp_torch.harness.dynamic_study import sample_dynamic_duel_initial_conditions
+    from dgsqp_torch.harness.scenarios import build_dynamic_duel
+    from dgsqp_torch.ops.dynamics import dyn_step
+    sc = build_dynamic_duel(N=15)
+    sol = dynamic_solver(sc, torch.float32, 'cuda')
+    call = study_batch(sc, sol, 4, sample_dynamic_duel_initial_conditions)
+    counts = lambda: (dyn_step.launches, dict(dyn_step.launches_by_order),
+                      dict(dyn_step.launches_by_shape))
+    profiling.reset()
+    added, outs = [], []
+    for _ in range(3):
+        before = counts()
+        outs.append(sol.problem.evaluate(*call))
+        after = counts()
+        added.append((after[0] - before[0],
+                      *({k: n - b.get(k, 0) for k, n in a.items() if n != b.get(k, 0)}
+                        for a, b in zip(after[1:], before[1:]))))
+    assert _graph_counts() == (1, 1, 1)
+    assert added[0][0] > 0 and added[0] == added[1] == added[2]
+    assert _equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+def test_graph_cache_runs_eager_for_good_where_a_capture_raises(counted):
+    """A function that reads the card from the host cannot be captured: its capture
+    raises, the call returns the eager answer, the signature stays eager, the current
+    stream is the one before, and capture and replay still work for another cache."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    x = torch.arange(4.0, device='cuda')
+    stream = torch.cuda.current_stream()
+    reads = cuda_graphs.GraphCache('reads')
+    outs = [reads(lambda v: v * float(v.sum()), (x,)) for _ in range(3)]
+    assert torch.cuda.current_stream() == stream
+    assert all(torch.equal(o, x * 6.0) for o in outs)
+    plain = cuda_graphs.GraphCache('plain')
+    outs = [plain(lambda v: v * 2.0 + 1.0, (x,)) for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert all(torch.equal(o, x * 2.0 + 1.0) for o in outs)
+    c = profiling.snapshot()['counters'][0]
+    assert (c.get('reads.eager'), c.get('reads.capture'), c.get('reads.replay')) == (3, None, None)
+    assert (c['plain.eager'], c['plain.capture'], c['plain.replay']) == (1, 1, 1)

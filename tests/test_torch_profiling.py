@@ -10,6 +10,11 @@
   where the batch is compacted; ``rounds == qp_calls``, ``ipm_iters`` is the sum of the
   interior-point loop's trips, and the result is bit for bit the one the same solve
   gives with tracing off.
+* ``GameProblem.evaluate``'s CUDA graphs (``dgsqp_torch.utils.cuda_graphs``) on the CPU:
+  every call runs eagerly (``evaluates.graph.eager``), the signature keys a call by its
+  structure and never by its values, and the launch counters' bookkeeping
+  (``dgsqp_torch.ops.linalg`` ``launch_counts``, ``add_launches``).  Capture and
+  replay are held on the card in ``tests/test_torch_cuda.py``.
 """
 import time
 
@@ -19,7 +24,7 @@ import torch
 
 from dgsqp_torch.harness.bench_setup import build_bench_batch, build_bench_solver
 from dgsqp_torch.solvers import dgsqp, dgsqp_v2
-from dgsqp_torch.utils import profiling
+from dgsqp_torch.utils import cuda_graphs, profiling
 
 from test_torch_cpu_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -162,4 +167,99 @@ def test_solver_spans_and_counters(bench, case, monkeypatch):
     assert c['evaluates'] == n('evaluate') \
         == c['evaluates.ad.hessian'] + c['evaluates.ad.first']
     assert c['evaluates.ad.hessian'] == c['rounds']
+    assert c['evaluates.graph.eager'] == c['evaluates']     # no graph on the CPU
     assert c.get('compactions', 0) == n('chunk.compact') == (case == 'v1_compacting')
+
+
+# ------------------------------------------------------- evaluate's CUDA graphs
+def test_evaluate_on_the_cpu_never_captures(bench):
+    solver, (u0, l0, x0, up) = bench['v1']
+    problem = solver.problem
+    with profiling.tracing():
+        hess = [problem.evaluate(u0, l0, x0, up) for _ in range(3)]
+        first = [problem.evaluate(u0, None, x0, up, hessian=False) for _ in range(3)]
+    c = profiling.snapshot()['counters'][0]
+    assert c['evaluates.graph.eager'] == c['evaluates'] == 6
+    assert 'evaluates.graph.capture' not in c and 'evaluates.graph.replay' not in c
+    assert problem._graphs._entries == {}
+    for outs in (hess, first):
+        for out in outs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(outs[0], out))
+
+
+def _call(B=4, dtype=torch.float64, l=True, hessian=True, P='pair', seed=0):
+    """Arguments of an evaluate-like call (u, l, x0, u_prev, P) and its flag."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=g, dtype=dtype)
+    Ps = {'none': None, 'pair': {'a': r(B, 3), 'b': [r(B, 6, 2)]},
+          'more': {'a': r(B, 3), 'b': [r(B, 6, 2), r(B, 6, 2)]},
+          'wider': {'a': r(B, 4), 'b': [r(B, 6, 2)]},
+          'float': {'a': r(B, 3), 'b': [0.5]}}
+    return (r(B, 20), r(B, 105) if l else None, r(B, 12), r(B, 4), Ps[P]), hessian
+
+
+SIGNATURES = {
+    # name: (keywords of _call, or a function of the base call's arguments; the key it
+    # gives: the base call's, a new one, or none)
+    'values': (dict(seed=1), 'same'),
+    'batch': (dict(B=3), 'new'),
+    'dtype': (dict(dtype=torch.float32), 'new'),
+    'l_none': (dict(l=False), 'new'),
+    'first_order': (dict(hessian=False), 'new'),
+    'P_none': (dict(P='none'), 'new'),
+    'P_structure': (dict(P='more'), 'new'),
+    'P_shape': (dict(P='wider'), 'new'),
+    'strides': (lambda a: ((a[0].t().contiguous().t(),) + a[1:]), 'new'),
+    'P_not_tensors': (dict(P='float'), 'none'),
+}
+
+
+@pytest.mark.parametrize('case', sorted(SIGNATURES))
+def test_graph_signature_keys_structure_not_values(case):
+    change, expect = SIGNATURES[case]
+    args, flag = _call()
+    base = cuda_graphs.signature(args, flag)
+    if callable(change):
+        key = cuda_graphs.signature(change(args), flag)
+    else:
+        key = cuda_graphs.signature(*_call(**change))
+    assert base is not None and hash(base) == hash(cuda_graphs.signature(*_call()))
+    assert {'same': key == base, 'new': key is not None and key != base,
+            'none': key is None}[expect]
+
+
+def test_launch_counts_add_and_take_back():
+    from dgsqp_torch.ops.dynamics import dyn_step as dyn
+    from dgsqp_torch.ops.linalg import add_launches, cho_solve, cholesky, launch_counts
+    before = launch_counts()
+    assert {(k, name) for k, name, key in before if key is None} \
+        == {(k, 'launches') for k in (dyn, cholesky, cho_solve)}
+    delta = {(dyn, 'launches', None): 3, (dyn, 'launches_by_shape', 'order2_P7'): 3}
+    add_launches(delta)
+    after = launch_counts()
+    assert after[(dyn, 'launches', None)] == before[(dyn, 'launches', None)] + 3
+    assert after[(dyn, 'launches_by_shape', 'order2_P7')] \
+        == before.get((dyn, 'launches_by_shape', 'order2_P7'), 0) + 3
+    add_launches(delta, -1)
+    if (dyn, 'launches_by_shape', 'order2_P7') not in before:
+        del dyn.launches_by_shape['order2_P7']
+    assert launch_counts() == before
+
+
+def test_every_kernel_wrapper_registers_its_launch_counters():
+    """Every function of ``dgsqp_torch.ops`` that counts launches (an attribute whose
+    name starts with ``launches``) has all of them registered, so that a replayed CUDA
+    graph adds to each what its capture added."""
+    import importlib
+    import pkgutil
+
+    import dgsqp_torch.ops
+    from dgsqp_torch.ops import linalg
+    registered = {(w, name) for w, names in linalg._launch_counters for name in names}
+    counting = set()
+    for info in pkgutil.iter_modules(dgsqp_torch.ops.__path__):
+        module = importlib.import_module(f'dgsqp_torch.ops.{info.name}')
+        for fn in vars(module).values():
+            if callable(fn) and getattr(fn, '__module__', None) == module.__name__:
+                counting |= {(fn, a) for a in vars(fn) if a.startswith('launches')}
+    assert len(counting) == 7 and counting == registered
