@@ -294,9 +294,11 @@ class DGSQPV2(_HostInterface):
         with profiling.sync('merit.select'):
             sel = torch.nonzero(enabled).flatten()
         nb = int(sel.numel())
+        W = p.line_search_iters
+        profiling.count('merit_games', nb)
+        profiling.count('merit_points', nb * W)
         if nb == 0:
             return u_t, l_t, phi1
-        W = p.line_search_iters
         alphas = torch.tensor(p.tau, dtype=self.dtype, device=self.device) ** \
             torch.arange(W, dtype=self.dtype, device=self.device)
         a3 = alphas[None, :, None]
@@ -452,22 +454,27 @@ class DGSQPV2(_HostInterface):
             u_full = src_u + src_du
             l_full = src_l + src_dl
             phi_full = self._full(B, math.inf)
-            with profiling.sync('trial.select'):
-                sel = torch.nonzero(m_step & keep_going).flatten()
-            if sel.numel():
-                x0_f, up_f = x0[sel], up[sel]
-                if approx_always:
-                    P_f = self._approx_update(u_full[sel], x0_f)
-                elif self._approx_update is not None:
-                    P_f = _rows(P_i, sel, 1)
-                else:
-                    P_f = P_i
-                q_f, G_f, g_f = self._eval_lite(u_full[sel], l_full[sel], x0_f, up_f, P_f)
-                s_f = torch.clamp(g_f, min=0.0)
-                obj_f = torch.sum(self.problem.eval_costs(u_full[sel], x0_f, up_f, P_f),
-                                  dim=-1) if sum_obj else None
-                phi_full = phi_full.index_copy(
-                    0, sel, self._phi(l_full[sel], s_f, q_f, G_f, g_f, 1.0, use_l1, obj=obj_f))
+            with profiling.span('trial'):
+                with profiling.sync('trial.select'):
+                    sel = torch.nonzero(m_step & keep_going).flatten()
+                profiling.count('trial_games', sel.numel())
+                if sel.numel():
+                    profiling.count('trials')
+                    x0_f, up_f = x0[sel], up[sel]
+                    if approx_always:
+                        P_f = self._approx_update(u_full[sel], x0_f)
+                    elif self._approx_update is not None:
+                        P_f = _rows(P_i, sel, 1)
+                    else:
+                        P_f = P_i
+                    q_f, G_f, g_f = self._eval_lite(u_full[sel], l_full[sel], x0_f, up_f,
+                                                    P_f)
+                    s_f = torch.clamp(g_f, min=0.0)
+                    obj_f = torch.sum(self.problem.eval_costs(u_full[sel], x0_f, up_f, P_f),
+                                      dim=-1) if sum_obj else None
+                    phi_full = phi_full.index_copy(
+                        0, sel, self._phi(l_full[sel], s_f, q_f, G_f, g_f, 1.0, use_l1,
+                                          obj=obj_f))
             R = (1 - p.merit_decrease) * mem_max(c.memory)
             accept_full = m_step & (phi_full <= R)
 

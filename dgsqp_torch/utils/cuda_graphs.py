@@ -24,7 +24,10 @@ A replay adds to the hand-written kernels' host-side launch counters (those that
 ``ops/linalg.py`` ``launch_counts`` reads) what its capture added, so that they count what
 ran.  Each call adds 1 to one of the tracer's counters ``<counter>.eager``,
 ``<counter>.capture`` and ``<counter>.replay`` (``utils/profiling.py``), ``counter`` being
-the cache's.
+the cache's; a signature seen for the first time adds 1 to ``<counter>.signatures``, and a
+capture adds the bytes of the static input and output buffers its graph pins to
+``<counter>.captured_bytes`` (the intermediates it keeps in the shared pool are not
+counted).
 """
 from __future__ import annotations
 
@@ -83,6 +86,10 @@ class _Graph:
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
         self.out_spec, self.launches = out_spec, launches
 
+    def nbytes(self) -> int:
+        """Bytes of the static input and output buffers."""
+        return sum(t.nbytes for t in self.inputs + self.outputs)
+
     def replay(self, tensors):
         for s, t in zip(self.inputs, tensors):
             s.copy_(t)
@@ -116,9 +123,11 @@ class GraphCache:
             entry = self._entries[key] = self._capture(fn, leaves, spec, flags)
             if isinstance(entry, _Graph):
                 profiling.count(self.counter + '.capture')
+                profiling.count(self.counter + '.captured_bytes', entry.nbytes())
                 return entry.replay(tensors)
         elif entry is None:
             self._entries[key] = _SEEN
+            profiling.count(self.counter + '.signatures')
         profiling.count(self.counter + '.eager')
         return fn(*args, *flags)
 

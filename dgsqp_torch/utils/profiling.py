@@ -22,11 +22,18 @@ The spans (a dotted name lies inside the span named before its dot):
 * ``qp``: the solver's ``_qp``; ``qp.convexify``, ``qp.ipm`` (the interior-point loop) and
   ``qp.polish`` (the active-set polish) inside it.
 * ``merit``: the grid line search.
+* ``trial``: v2's full-step trial of the games that take an m-step, from the read that
+  selects them to their merit at the full step.
 * ``sync``: a device-to-host read (the host waits for the device there).
 
 The counters: ``rounds``, ``qp_calls``, ``ipm_iters`` (trips of the interior-point loop,
 each advancing every active game), ``host_syncs`` and ``host_syncs.<site>``,
-``evaluates`` and ``evaluates.<ad|dp>.<hessian|first>``, ``chunks`` and ``compactions``.
+``evaluates`` and ``evaluates.<ad|dp>.<hessian|first>``, ``chunks`` and ``compactions``;
+v2's ``trials`` (trials that evaluated at least one game), ``trial_games`` (games in them),
+``merit_games`` (games in the line search's grid) and ``merit_points`` (their trial points,
+games times ``line_search_iters``); a CUDA-graph cache's ``<counter>.eager``,
+``.capture``, ``.replay``, ``.signatures`` and ``.captured_bytes``
+(``utils/cuda_graphs.py``; ``evaluate``'s counter is ``evaluates.graph``).
 """
 from __future__ import annotations
 

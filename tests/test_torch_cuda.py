@@ -493,3 +493,24 @@ def test_graph_cache_runs_eager_for_good_where_a_capture_raises(counted):
     c = profiling.snapshot()['counters'][0]
     assert (c.get('reads.eager'), c.get('reads.capture'), c.get('reads.replay')) == (3, None, None)
     assert (c['plain.eager'], c['plain.capture'], c['plain.replay']) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+def test_graph_cache_counts_signatures_and_captured_bytes(counted):
+    """Three calls at each of two widths: a signature is counted the first time it is
+    seen, and each capture adds the bytes of the static inputs and outputs its graph
+    pins; a replay adds to neither."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    cache = cuda_graphs.GraphCache('g')
+    fn = lambda v, w: (v * 2.0 + w, (v * w).sum(-1))
+    pinned = 0
+    for B in (8, 3):
+        args = (torch.rand(B, 5, device='cuda'), torch.rand(B, 5, device='cuda'))
+        outs = [cache(fn, args) for _ in range(3)]
+        assert all(_equal(o, fn(*args)) for o in outs)
+        pinned += 4 * (B * 5 + B * 5) + 4 * (B * 5 + B)
+    c = profiling.snapshot()['counters'][0]
+    assert (c['g.eager'], c['g.capture'], c['g.replay']) == (2, 2, 2)
+    assert c['g.signatures'] == 2 and c['g.captured_bytes'] == pinned
+    assert pinned == sum(g.nbytes() for g in cache._entries.values())

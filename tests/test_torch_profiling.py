@@ -115,7 +115,8 @@ SOLVES = {
     'v1_compacting': ('v1', dict(chunk_iters=1, max_chunks=2, compact=True),
                       ['solve > chunk > sync', 'solve > chunk > chunk.compact',
                        'solve > chunk > chunk.compact > sync']),
-    'v2': ('v2', dict(chunk_iters=2, max_chunks=2), ['solve > chunk > round > sync']),
+    'v2': ('v2', dict(chunk_iters=2, max_chunks=2),
+           ['solve > chunk > round > trial', 'solve > chunk > round > trial > sync']),
 }
 
 
@@ -156,7 +157,8 @@ def test_solver_spans_and_counters(bench, case, monkeypatch):
         if '.' in s['name']:
             assert parent == s['name'].rsplit('.', 1)[0]
         if s['name'] == 'sync':
-            assert parent in ('solve', 'chunk', 'chunk.compact', 'round', 'qp.ipm', 'merit')
+            assert parent in ('solve', 'chunk', 'chunk.compact', 'round', 'qp.ipm', 'merit',
+                              'trial')
     n = lambda key: sum(s['name'] == key for s in spans)
     assert c['rounds'] == c['qp_calls'] == n('round') == n('qp') == len(trips) > 0
     assert c['ipm_iters'] == sum(trips)
@@ -169,6 +171,77 @@ def test_solver_spans_and_counters(bench, case, monkeypatch):
     assert c['evaluates.ad.hessian'] == c['rounds']
     assert c['evaluates.graph.eager'] == c['evaluates']     # no graph on the CPU
     assert c.get('compactions', 0) == n('chunk.compact') == (case == 'v1_compacting')
+
+
+@pytest.fixture(scope='module')
+def approx():
+    """The approximate (MPCC) duel's bench solver, v2-Frenet, at N = 6 and its 4-game
+    seed-0 batch in float64."""
+    sc, solver = build_bench_solver(horizon=6, solver_name='approx', dtype=torch.float64,
+                                    device='cpu')
+    return solver, build_bench_batch(sc, solver, BATCH, seed=0)
+
+
+def test_v2_trial_and_merit_counters_follow_the_rounds(approx, monkeypatch):
+    """``trials``, ``trial_games``, ``merit_games`` and ``merit_points`` against the masks
+    that each round's carries before and after it, and its QP answer, imply: a game went
+    on where its iteration count grew, took an m-step (and so the full-step trial) where
+    its m-step count grew, and went to the line search where that trial's merit missed
+    the non-monotone reference.  With tracing off the solve gives the same bits."""
+    solver, batch = approx
+    # rounds enough for the games to finish apart (benchmark/test_perf_faults.py's)
+    kw = dict(chunk_iters=8, max_chunks=2, compact=False)
+    res_off = solver.solve_batch_chunked(*batch, **kw)
+    seen, answers = [], []
+    make_body, qp = solver._make_body, solver._qp
+
+    def recording_body(x0, up, P=None):
+        body = make_body(x0, up, P)
+
+        def rec(c):
+            out = body(c)
+            seen.append((c, out, x0, up))
+            return out
+        return rec
+
+    def recording_qp(*args):
+        out = qp(*args)
+        answers.append(out)
+        return out
+    monkeypatch.setattr(solver, '_make_body', recording_body)
+    monkeypatch.setattr(solver, '_qp', recording_qp)
+    with profiling.tracing():
+        res_on = solver.solve_batch_chunked(*batch, **kw)
+    for f in res_off._fields:
+        assert torch.equal(getattr(res_on, f), getattr(res_off, f)), f
+
+    snap = profiling.snapshot()
+    c = snap['counters'][1]
+    p = solver.params
+    want = dict(trials=0, trial_games=0, merit_games=0)
+    for (before, after, x0, up), (du, lam, ok) in zip(seen, answers, strict=True):
+        assert bool(ok.all())          # no QP-failure recovery in this batch
+        mstep = after.m_it > before.m_it
+        assert bool((mstep <= (after.it > before.it)).all())
+        sel = torch.nonzero(mstep).flatten()
+        want['trials'] += int(sel.numel() > 0)
+        want['trial_games'] += int(sel.numel())
+        if not sel.numel():
+            continue
+        u_full = (before.u + du)[sel]
+        l_full = (before.l + (lam - before.l))[sel]
+        q, G, g, _ = solver.problem.evaluate(u_full, l_full, x0[sel], up[sel], None,
+                                             hessian=False)
+        phi_full = solver._phi(l_full, torch.clamp(g, min=0.0), q, G, g, 1.0, True)
+        R = (1 - p.merit_decrease) * before.memory.amax(-1)[sel]
+        want['merit_games'] += int((phi_full > R).sum())
+    assert want['trials'] > 0 and 0 < want['merit_games'] < want['trial_games']
+    assert want['trial_games'] < BATCH * len(seen)     # not every game in every trial
+    assert {k: c[k] for k in want} == want
+    assert c['merit_points'] == p.line_search_iters * want['merit_games']
+    n = lambda key: sum(s['name'] == key for s in snap['spans'])
+    assert n('trial') == n('round') == c['rounds'] == len(seen)
+    assert c['host_syncs.trial.select'] == c['host_syncs.merit.select'] == c['rounds']
 
 
 # ------------------------------------------------------- evaluate's CUDA graphs
