@@ -155,10 +155,12 @@ kernels and of ``dynamic_path`` for ``dyn_step``, ``launches_by_path`` has every
 ``race_path`` and ``sharded_path`` (summed over its ranks) among them),
 and last ``{"ok": true, "device": ...}``.  Every line also goes to
 ``build/chip_smoke.jsonl`` (the kernels line alone is longer than a caller may see of
-the output's tail).  Each line carries ``evaluate_graph``: ``GameProblem.evaluate``'s
-calls in its process since the line before, eager, captured into a CUDA graph or
-replayed (the port's tracer is on in every process of this script for these counters;
-the sharded path's ranks and the bench CLI, processes of their own, are not counted).
+the output's tail).  Each line carries ``evaluate_graph`` and ``merit_graph``:
+``GameProblem.evaluate``'s calls and the line search's merit grids (v1's ``_grid_ls``,
+v2's ``_line_search``) in its process since the line before, eager, captured into a CUDA
+graph or replayed (the port's tracer is on in every process of this script for these
+counters; the sharded path's ranks and the bench CLI, processes of their own, are not
+counted).
 Any failed check raises and the script exits non-zero; without a card it exits
 non-zero before printing any result.
 """
@@ -359,21 +361,25 @@ LOG = Path(__file__).resolve().parent / 'build' / 'chip_smoke.jsonl'
 
 
 def graph_calls() -> dict:
-    """``GameProblem.evaluate``'s calls in this process since the last line, by how each
-    ran (``dgsqp_torch/utils/cuda_graphs.py``): eager, captured or replayed.  Empties the
+    """``GameProblem.evaluate``'s calls (``evaluate_graph``) and the merit grids
+    (``merit_graph``) in this process since the last line, by how each ran
+    (``dgsqp_torch/utils/cuda_graphs.py``): eager, captured or replayed.  Empties the
     tracer, which every process of this script keeps on for these counters."""
     from dgsqp_torch.utils import profiling
-    calls = dict.fromkeys(('eager', 'capture', 'replay'), 0)
-    for counters in profiling.TRACER.counters.values():
-        for k in calls:
-            calls[k] += counters.get('evaluates.graph.' + k, 0)
+    out = {}
+    for name, counter in (('evaluate_graph', 'evaluates.graph.'),
+                          ('merit_graph', 'merits.graph.')):
+        calls = out[name] = dict.fromkeys(('eager', 'capture', 'replay'), 0)
+        for counters in profiling.TRACER.counters.values():
+            for k in calls:
+                calls[k] += counters.get(counter + k, 0)
     profiling.reset()
-    return calls
+    return out
 
 
 def emit(obj):
     if 'evaluate_graph' not in obj:     # a child's line, emitted again, has its own
-        obj = dict(obj, evaluate_graph=graph_calls())
+        obj = dict(obj, **graph_calls())
     line = json.dumps(obj)
     print(line, flush=True)
     with open(LOG, 'a') as f:

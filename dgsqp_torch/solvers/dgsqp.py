@@ -41,6 +41,7 @@ from dgsqp_torch.solvers.qp import solve_qp
 from dgsqp_torch.solvers.solver_types import DGSQPParams
 from dgsqp_torch.types import VehiclePrediction, VehicleState
 from dgsqp_torch.utils import profiling
+from dgsqp_torch.utils.cuda_graphs import GraphCache
 from dgsqp_torch.utils.math import regularized_convexification
 
 (RUNNING, CONV_ABS, CONV_REL, DIVERGED, QP_FAIL, MAX_IT, TIME_LIMIT,
@@ -187,6 +188,39 @@ def _get_mu(du, l, dl, s, Q, q, G, g, merit_function: str):
         (1.0 + torch.amax(torch.abs(g), dim=-1))
     mu_pos = torch.abs(d_stat) / ((1 - rho) * torch.clamp(constr_vio, min=1e-300))
     return torch.where(constr_vio > thresh, mu_pos, 0.0)
+
+
+def _ls_alphas(p, like):
+    """The line search's steps tau^j, j < ``line_search_iters``, in ``like``'s dtype and
+    on its device."""
+    return torch.tensor(p.tau, dtype=like.dtype, device=like.device) ** \
+        torch.arange(p.line_search_iters, dtype=like.dtype, device=like.device)
+
+
+def _count_grid(enabled, alphas):
+    """The grid's counters: ``merit_games`` (a read, taken only while tracing is on) and
+    ``merit_points``."""
+    profiling.count_true('merit_games', enabled, 'merit.games')
+    profiling.count('merit_points', enabled.shape[0] * alphas.shape[0])
+
+
+def _trials(alphas, u, du, l, dl):
+    """The grid's trial points (u + alpha du, l + alpha dl), (B * W, n) in game-major
+    order.  A game that is not enabled is evaluated too, and its answers are dropped: the
+    evaluation is row by row, so a step that is not finite stays in its own rows."""
+    a3 = alphas[None, :, None]
+    n = u.shape[0] * alphas.shape[0]
+    return ((u[:, None] + a3 * du[:, None]).reshape(n, -1),
+            (l[:, None] + a3 * dl[:, None]).reshape(n, -1))
+
+
+def _pick(enabled, ok, alphas, u, du, l, dl):
+    """Each game's first accepted trial of the (B, W) acceptance table ``ok``, else its
+    last: (its index, and the point there, or (u, l) where the game is not enabled)."""
+    first = torch.argmax(ok.to(torch.uint8), dim=-1)
+    idx = torch.where(ok.any(-1), first, alphas.shape[0] - 1)
+    alpha = alphas[idx][:, None]
+    return idx, _sel(enabled, u + alpha * du, u), _sel(enabled, l + alpha * dl, l)
 
 
 class _HostInterface:
@@ -342,6 +376,7 @@ class DGSQP(_HostInterface):
         if self._qp_pairs is not None and not self._qp_pairs[0]:
             self._qp_pairs = None
         self.last_chunk_history = None
+        self._merit_graphs = GraphCache('merits.graph')
 
     def _use_flat(self) -> bool:
         p = self.params
@@ -387,37 +422,30 @@ class DGSQP(_HostInterface):
 
     @profiling.traced('merit')
     def _grid_ls(self, enabled, u, du, l, dl, s, ds, phi0, dphi0, mu, x0, up, P=None):
-        """Geometric trial grid alpha = tau^j, j < line_search_iters, evaluated at once;
-        the first Armijo-accepted trial wins, else the last.  Only the enabled games are
-        evaluated; the others return (u, l, phi0) as they would in the full grid."""
+        """Geometric trial grid alpha = tau^j, j < line_search_iters, evaluated at once
+        for every game of the batch; the first Armijo-accepted trial wins, else the last.
+        Games that are not ``enabled`` return (u, l, phi0).  On the card, from the second
+        call at an input signature on, the grid replays a CUDA graph captured at that
+        signature (``utils/cuda_graphs.py``; counters ``merits.graph.*``)."""
         p = self.params
-        use_l1 = p.merit_function == 'stat_l1'
-        W = p.line_search_iters
-        alphas = torch.tensor(p.tau, dtype=self.dtype, device=self.device) ** \
-            torch.arange(W, dtype=self.dtype, device=self.device)
-        u_t, l_t, phi_out = u, l, phi0
-        with profiling.sync('merit.select'):
-            sel = torch.nonzero(enabled).flatten()
-        nb = int(sel.numel())
-        if nb == 0:
-            return u_t, l_t, phi_out
-        a3 = alphas[None, :, None]
-        u_try = u[sel][:, None] + a3 * du[sel][:, None]
-        l_try = l[sel][:, None] + a3 * dl[sel][:, None]
-        s_try = s[sel][:, None] + a3 * ds[sel][:, None]
-        rep = lambda v: v[sel][:, None].expand(nb, W, *v.shape[1:]).reshape(nb * W, *v.shape[1:])
-        d_t, g_t = self.problem.merit_terms(u_try.reshape(nb * W, -1),
-                                            l_try.reshape(nb * W, -1), rep(x0), rep(up), P)
-        phis = _merit_phi_dg(d_t, g_t, l_try.reshape(nb * W, -1), s_try.reshape(nb * W, -1),
-                             rep(mu), use_l1).reshape(nb, W)
-        ok = phis <= phi0[sel][:, None] + (p.beta * alphas)[None, :] * dphi0[sel][:, None]
-        first = torch.argmax(ok.to(torch.uint8), dim=-1)
-        idx = torch.where(ok.any(-1), first, W - 1)
-        alpha_sel = alphas[idx][:, None]
-        u_t = u.index_copy(0, sel, u[sel] + alpha_sel * du[sel])
-        l_t = l.index_copy(0, sel, l[sel] + alpha_sel * dl[sel])
-        phi_out = phi0.index_copy(0, sel, phis.gather(1, idx[:, None])[:, 0])
-        return u_t, l_t, phi_out
+        alphas = _ls_alphas(p, u)
+        _count_grid(enabled, alphas)
+        return self._merit_graphs(self._grid, (enabled, u, du, l, dl, s, ds, phi0, dphi0,
+                                               mu, x0, up, P, alphas),
+                                  p.beta, p.merit_function == 'stat_l1')
+
+    def _grid(self, enabled, u, du, l, dl, s, ds, phi0, dphi0, mu, x0, up, P, alphas,
+              beta: float, use_l1: bool):
+        """:meth:`_grid_ls`'s operations, run eagerly."""
+        B, W = u.shape[0], alphas.shape[0]
+        u_try, l_try = _trials(alphas, u, du, l, dl)
+        s_try = (s[:, None] + alphas[None, :, None] * ds[:, None]).reshape(B * W, -1)
+        rep = lambda v: v[:, None].expand(B, W, *v.shape[1:]).reshape(B * W, *v.shape[1:])
+        d_t, g_t = self.problem.merit_terms(u_try, l_try, rep(x0), rep(up), P)
+        phis = _merit_phi_dg(d_t, g_t, l_try, s_try, rep(mu), use_l1).reshape(B, W)
+        ok = phis <= phi0[:, None] + (beta * alphas)[None, :] * dphi0[:, None]
+        idx, u_t, l_t = _pick(enabled, ok, alphas, u, du, l, dl)
+        return u_t, l_t, torch.where(enabled, phis.gather(1, idx[:, None])[:, 0], phi0)
 
     # ------------------------------------------------------------- nested machine
     def _watchdog(self, run, u_k, du_k, l_k, dl_k, s_k, ds_k, Q_k, q_k, G_k, g_k, mu,

@@ -23,8 +23,10 @@ batch, every tensor carries the games as its leading dimension, and a game that 
 (or has ended) keeps its carry apart from the status and the convergence measures it
 ended on.  (In the JAX version such a game's ``delta``, ``reg`` and ``ck_delta`` may
 still fall back to its checkpoint's values, because those selects are not masked;
-nothing reads them afterwards.)  The full-step trial and the line search are evaluated
-only for the games that use them.
+nothing reads them afterwards.)  The full-step trial is evaluated only for the games
+that take it; the line search's grid, in a round where some game takes an m-step, for
+every game of the batch, so that its shapes, and on the card its CUDA graph, stay the
+same from round to round.
 """
 from __future__ import annotations
 
@@ -36,13 +38,14 @@ import torch
 
 from dgsqp_torch.solvers.chunked import run_chunked_compacted
 from dgsqp_torch.solvers.dgsqp import (CONV_ABS, CONV_REL, DIVERGED, MAX_IT, QP_FAIL, RUNNING,
-                                       STALLED, SQPResult, _dot, _HostInterface, _mtv, _mv,
-                                       _sel)
+                                       STALLED, SQPResult, _count_grid, _dot, _HostInterface,
+                                       _ls_alphas, _mtv, _mv, _pick, _sel, _trials)
 from dgsqp_torch.solvers.game_problem import GameProblem
 from dgsqp_torch.solvers.qp import solve_qp
 from dgsqp_torch.solvers.solver_types import DGSQPV2Params
 from dgsqp_torch.types import VehicleState
 from dgsqp_torch.utils import profiling
+from dgsqp_torch.utils.cuda_graphs import GraphCache
 from dgsqp_torch.utils.math import nearest_pd, nearest_pd_ns
 
 
@@ -92,6 +95,23 @@ class _CarryV2(NamedTuple):
 
 _ChunkResult = NamedTuple('_ChunkResult', [(f, torch.Tensor)
                                             for f in SQPResult._fields + ('m_it',)])
+
+
+def _reference(alpha, sigma: float, phi0, dphi0, fresh, phi0_ck, dphi0_ck, mem_max):
+    """The merit each trial step ``alpha`` (1, W) must not exceed, (B, W).  Armijo from
+    (``phi0``, ``dphi0``); where ``fresh`` is given, its false games take Armijo from the
+    checkpoint's (``phi0_ck``, ``dphi0_ck``), or else the non-monotone reference from
+    ``mem_max``, the merit memory's max; without ``phi0`` every game takes the
+    non-monotone reference."""
+    nonmono = None if mem_max is None else (1 - sigma * alpha) * mem_max[:, None]
+    if phi0 is None:
+        return nonmono
+    armijo = phi0[:, None] + sigma * alpha * dphi0[:, None]
+    if fresh is None:
+        return armijo
+    stale = nonmono if phi0_ck is None else \
+        phi0_ck[:, None] + sigma * alpha * dphi0_ck[:, None]
+    return torch.where(fresh[:, None], armijo, stale)
 
 
 def _rows(P, sel, W: int):
@@ -145,6 +165,7 @@ class DGSQPV2(_HostInterface):
             self._qp_pairs = None
         self.last_chunk_history = None
         self.last_m_iters = None     # per-game m-step counts of the last chunked solve
+        self._merit_graphs = GraphCache('merits.graph')
 
     def _full(self, B: int, v, dtype=None):
         return torch.full((B,), v, dtype=dtype or self.dtype, device=self.device)
@@ -229,14 +250,14 @@ class DGSQPV2(_HostInterface):
         return sol.x, sol.lam, sol.ok
 
     @profiling.traced('merit')
-    def _line_search(self, enabled, u, du, l, dl, s, mu, mem_max, x0, up, P, P_fn=None,
-                     eval0=None, ck_ref=None):
+    def _line_search(self, enabled, u, du, l, dl, s, mu, mem_max, x0, up, P,
+                     relinearize: bool = False, eval0=None, ck_ref=None):
         """v2 backtracking line search as a trial grid alpha = tau^j.
 
         Returns (u_acc, l_acc, phi_acc_mu1) where phi is evaluated with mu=1 at the
         accepted point (fed into the merit memory); games that are not ``enabled`` get
-        (u, l, inf).  ``P_fn(u, x0)`` (approximate game, ``approximation_eval='always'``)
-        re-linearizes the parameters at each trial point.
+        (u, l, inf).  With ``relinearize`` (approximate game, ``approximation_eval=
+        'always'``) the parameters are re-linearized at each trial point.
 
         ``eval0 = (Q0, q0, G0, g0, fresh)``: the round's derivatives at the current
         iterate plus a per-game mask of games whose line-search point is that iterate.
@@ -246,14 +267,16 @@ class DGSQPV2(_HostInterface):
         checkpoint's own step and mu.  Without ``ck_ref`` stale games fall back to the
         non-monotone max-merit reference.
 
-        Only the enabled games are evaluated, all their trials at once; the first
-        accepted trial wins, else the last.
+        Every game of the batch is evaluated, all its trials at once; the first accepted
+        trial wins, else the last.  On the card, from the second call at an input
+        signature on, the grid replays a CUDA graph captured at that signature
+        (``utils/cuda_graphs.py``; counters ``merits.graph.*``).
         """
         p = self.params
         use_l1 = p.merit_function in ('stat_l1', 'sum_obj_l1')
         sum_obj = p.merit_function == 'sum_obj_l1'
-        sigma = p.merit_decrease
 
+        # the reference's inputs, None where the reference does not read them
         if p.merit_decrease_condition == 'armijo':
             fresh = None
             if eval0 is not None and not sum_obj:
@@ -268,64 +291,44 @@ class DGSQPV2(_HostInterface):
             phi0 = self._phi(l, s, q0, G0, g0, mu, use_l1, obj=obj0)
             dphi0 = self._dphi(du, l, dl, torch.clamp(g0, min=0.0), Q0, q0, G0, g0, mu,
                                use_l1, dobj=dobj0)
-
-            if fresh is not None and ck_ref is not None:
-                phi0_ck, dphi0_ck = ck_ref
-
-                def ref(alpha, sel):
-                    return torch.where(fresh[sel][:, None],
-                                       phi0[sel][:, None] + sigma * alpha * dphi0[sel][:, None],
-                                       phi0_ck[sel][:, None]
-                                       + sigma * alpha * dphi0_ck[sel][:, None])
-            elif fresh is not None:
-                def ref(alpha, sel):
-                    return torch.where(fresh[sel][:, None],
-                                       phi0[sel][:, None] + sigma * alpha * dphi0[sel][:, None],
-                                       (1 - sigma * alpha) * mem_max[sel][:, None])
+            if fresh is None:
+                ref = (phi0, dphi0, None, None, None, None)
+            elif ck_ref is not None:
+                ref = (phi0, dphi0, fresh, *ck_ref, None)
             else:
-                def ref(alpha, sel):
-                    return phi0[sel][:, None] + sigma * alpha * dphi0[sel][:, None]
+                ref = (phi0, dphi0, fresh, None, None, mem_max)
         else:  # 'max'
-            def ref(alpha, sel):
-                return (1 - sigma * alpha) * mem_max[sel][:, None]
+            ref = (None, None, None, None, None, mem_max)
 
-        u_t, l_t = u, l
-        phi1 = self._full(u.shape[0], math.inf)
-        with profiling.sync('merit.select'):
-            sel = torch.nonzero(enabled).flatten()
-        nb = int(sel.numel())
-        W = p.line_search_iters
-        profiling.count('merit_games', nb)
-        profiling.count('merit_points', nb * W)
-        if nb == 0:
-            return u_t, l_t, phi1
-        alphas = torch.tensor(p.tau, dtype=self.dtype, device=self.device) ** \
-            torch.arange(W, dtype=self.dtype, device=self.device)
-        a3 = alphas[None, :, None]
-        u_try = (u[sel][:, None] + a3 * du[sel][:, None]).reshape(nb * W, -1)
-        l_try = (l[sel][:, None] + a3 * dl[sel][:, None]).reshape(nb * W, -1)
-        rep = lambda v: v[sel].repeat_interleave(W, dim=0)
+        alphas = _ls_alphas(p, u)
+        _count_grid(enabled, alphas)
+        return self._merit_graphs(self._grid, (enabled, u, du, l, dl, mu, x0, up, P, alphas,
+                                               ref),
+                                  p.merit_decrease, use_l1, sum_obj, relinearize)
+
+    def _grid(self, enabled, u, du, l, dl, mu, x0, up, P, alphas, ref, sigma: float,
+              use_l1: bool, sum_obj: bool, relinearize: bool):
+        """:meth:`_line_search`'s grid, run eagerly; ``ref`` holds the inputs of
+        :func:`_reference`."""
+        B, W = u.shape[0], alphas.shape[0]
+        u_try, l_try = _trials(alphas, u, du, l, dl)
+        rep = lambda v: v.repeat_interleave(W, dim=0)
         x0_r, up_r = rep(x0), rep(up)
-        if P_fn is not None:
-            P_t = P_fn(u_try, x0_r)
+        if relinearize:
+            P_t = self._approx_update(u_try, x0_r)
         elif self._approx_update is not None:
-            P_t = _rows(P, sel, W)
+            P_t = _rows(P, slice(None), W)
         else:
             P_t = P
         d_t, g_t = self.problem.merit_terms(u_try, l_try, x0_r, up_r, P_t)
         s_t = torch.clamp(g_t, min=0.0)
         obj_t = torch.sum(self.problem.eval_costs(u_try, x0_r, up_r, P_t), dim=-1) \
             if sum_obj else None
-        phis = self._phi_d(d_t, s_t, rep(mu), use_l1, obj=obj_t).reshape(nb, W)
-        phi1s = self._phi_d(d_t, s_t, 1.0, use_l1, obj=obj_t).reshape(nb, W)
-        ok = phis <= ref(alphas[None, :], sel)
-        first = torch.argmax(ok.to(torch.uint8), dim=-1)
-        idx = torch.where(ok.any(-1), first, W - 1)
-        alpha_sel = alphas[idx][:, None]
-        u_t = u.index_copy(0, sel, u[sel] + alpha_sel * du[sel])
-        l_t = l.index_copy(0, sel, l[sel] + alpha_sel * dl[sel])
-        phi1 = phi1.index_copy(0, sel, phi1s.gather(1, idx[:, None])[:, 0])
-        return u_t, l_t, phi1
+        phis = self._phi_d(d_t, s_t, rep(mu), use_l1, obj=obj_t).reshape(B, W)
+        phi1s = self._phi_d(d_t, s_t, 1.0, use_l1, obj=obj_t).reshape(B, W)
+        ok = phis <= _reference(alphas[None, :], sigma, *ref)
+        idx, u_t, l_t = _pick(enabled, ok, alphas, u, du, l, dl)
+        return u_t, l_t, torch.where(enabled, phi1s.gather(1, idx[:, None])[:, 0], math.inf)
 
     # ----------------------------------------------------------------- core loop
     def _make_body(self, x0, up, P=None):
@@ -491,11 +494,16 @@ class DGSQPV2(_HostInterface):
 
             ls_enabled = (m_step & ~accept_full) | plain_ls
             ls_fresh = ~(rollback | qp_fail_recover)
-            u_ls, l_ls, phi_ls = self._line_search(
-                ls_enabled & keep_going, ls_u, ls_du, ls_l, ls_dl, ls_s, ls_mu,
-                mem_max(c.memory), x0, up, P_i,
-                P_fn=self._approx_update if approx_always else None,
-                eval0=(Q, q, G, g, ls_fresh), ck_ref=(ck_phi0_c, ck_dphi0_c))
+            if p.nms and not sel.numel():
+                # no game takes an m-step (the trial's read says so), so none searches
+                # and nothing below reads the grid's answer
+                u_ls, l_ls, phi_ls = ls_u, ls_l, phi_full
+            else:
+                u_ls, l_ls, phi_ls = self._line_search(
+                    ls_enabled & keep_going, ls_u, ls_du, ls_l, ls_dl, ls_s, ls_mu,
+                    mem_max(c.memory), x0, up, P_i,
+                    relinearize=approx_always,
+                    eval0=(Q, q, G, g, ls_fresh), ck_ref=(ck_phi0_c, ck_dphi0_c))
 
             # ---------- select the next iterate
             u_n = _sel(d_step, u_d, _sel(accept_full, u_full, _sel(ls_enabled, u_ls, c.u)))

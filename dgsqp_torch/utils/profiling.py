@@ -6,11 +6,12 @@ start and end in nanoseconds since the epoch, ``time.time_ns()``: the clock of
 ``torch.profiler``'s trace, so that a device event falls inside the host span that was
 open when it ran) and counters added on the host, kept by request.  ``TRACER`` is the
 process's one recorder.  The solvers reach it through this module's functions (``span``,
-``traced``, ``count``, ``sync``, ``read_bool``, ``read_numpy``), which test one flag and
-do nothing else while tracing is off, the default: no clock read, no allocation, no
-device work.  ``enable()``/``disable()`` or ``with tracing():`` switch it, ``snapshot()``
-hands out what it recorded and ``reset()`` clears it.  Tracing adds no device work: a
-read is timed where the program makes it, and nothing is read for the tracer.
+``traced``, ``count``, ``count_true``, ``sync``, ``read_bool``, ``read_numpy``), which
+test one flag and do nothing else while tracing is off, the default: no clock read, no
+allocation, no device work, no read.  ``enable()``/``disable()`` or ``with tracing():``
+switch it, ``snapshot()`` hands out what it recorded and ``reset()`` clears it.  A read
+is timed where the program makes it; tracing adds no device work and no read of its own
+but ``count_true``'s, a sum and its read taken for the tracer alone while it is on.
 
 The spans (a dotted name lies inside the span named before its dot):
 
@@ -29,11 +30,13 @@ The spans (a dotted name lies inside the span named before its dot):
 The counters: ``rounds``, ``qp_calls``, ``ipm_iters`` (trips of the interior-point loop,
 each advancing every active game), ``host_syncs`` and ``host_syncs.<site>``,
 ``evaluates`` and ``evaluates.<ad|dp>.<hessian|first>``, ``chunks`` and ``compactions``;
-v2's ``trials`` (trials that evaluated at least one game), ``trial_games`` (games in them),
-``merit_games`` (games in the line search's grid) and ``merit_points`` (their trial points,
-games times ``line_search_iters``); a CUDA-graph cache's ``<counter>.eager``,
-``.capture``, ``.replay``, ``.signatures`` and ``.captured_bytes``
-(``utils/cuda_graphs.py``; ``evaluate``'s counter is ``evaluates.graph``).
+v2's ``trials`` (trials that evaluated at least one game) and ``trial_games`` (games in
+them); v1's and v2's ``merit_games`` (games the line search's grid decides for, read at
+the site ``merit.games`` while tracing is on) and ``merit_points`` (the trial points the
+grid evaluates: the batch's width times ``line_search_iters``); a CUDA-graph cache's
+``<counter>.eager``, ``.capture``, ``.replay``, ``.signatures`` and ``.captured_bytes``
+(``utils/cuda_graphs.py``; ``evaluate``'s counter is ``evaluates.graph``, the grid's
+``merits.graph``).
 """
 from __future__ import annotations
 
@@ -184,6 +187,14 @@ def sync(site: str):
         return _NO_SPAN
     TRACER.count('host_syncs.' + site)
     return span('sync', 'host_syncs')
+
+
+def count_true(name: str, mask: torch.Tensor, site: str):
+    """Add the number of true entries of ``mask`` to ``name`` while tracing is on, by a
+    read at ``site`` taken for that count alone; nothing, and no read, while off."""
+    if _on:
+        with sync(site):
+            TRACER.count(name, int(mask.sum()))
 
 
 def read_bool(t: torch.Tensor, site: str) -> bool:

@@ -2,7 +2,8 @@
 the port's tracer on the clock of ``torch.profiler``'s device trace; ``evaluate``'s CUDA
 graphs (``dgsqp_torch.utils.cuda_graphs``): replays bit for bit the eager call, fresh
 outputs, one graph a signature, eager inside an outer capture, launch counts kept, eager
-for good where a capture raises.
+for good where a capture raises; the line search's merit grid (v1 and v2), replayed bit
+for bit from the third call at a width.
 
 The kernels are held against their plain versions, at every main-path shape, by the
 ``kernels`` phase of ``chip_smoke.py``; these tests cover what that phase does not.  They
@@ -514,3 +515,79 @@ def test_graph_cache_counts_signatures_and_captured_bytes(counted):
     assert (c['g.eager'], c['g.capture'], c['g.replay']) == (2, 2, 2)
     assert c['g.signatures'] == 2 and c['g.captured_bytes'] == pinned
     assert pinned == sum(g.nbytes() for g in cache._entries.values())
+
+
+# ---------------------------------------------------------- the merit grid's graphs
+def _merit_grid(name):
+    """The bench solver ``name`` (v1: the chicane, 256 games, 20 trials; approx: the MPCC
+    duel on v2, 64 games, 10 trials) in float32 on the card, the inputs of a line search
+    from its seed-0 batch's QP step, and ``call(enabled, inputs)``, the solver's grid."""
+    from torch.utils._pytree import tree_map
+
+    from dgsqp_torch.harness.bench_setup import build_bench_batch, build_bench_solver
+    from dgsqp_torch.solvers.dgsqp import _get_mu, _merit_dphi, _merit_phi
+    sc, sol = build_bench_solver(horizon=25, solver_name=name, dtype=torch.float32,
+                                 device='cuda')
+    B = 256 if name == 'v1' else 64
+    u, l, x0, up = build_bench_batch(sc, sol, B, seed=0)
+    if name == 'v1':
+        Q, q, G, g, _ = sol._eval_full(u, l, x0, up)
+        du, lhat, _, _ = sol._qp(Q, q, G, g)
+        dl, s = lhat - l, torch.clamp(g, max=0.0)
+        ds = g + (G @ du[..., None])[..., 0] - s
+        mu = _get_mu(du, l, dl, s, Q, q, G, g, sol.params.merit_function)
+        phi0 = _merit_phi(l, s, q, G, g, mu, True)
+        dphi0 = _merit_dphi(du, l, dl, s, Q, q, G, g, mu, True)
+        inputs = (u, du, l, dl, s, ds, phi0, dphi0, mu, x0, up)
+        call = lambda en, a: sol._grid_ls(en, *a)
+    else:
+        Q, q, G, g = sol._eval_full(u, l, x0, up, None)
+        du, lhat, _ = sol._qp(Q, q, G, g, sol._full(B, sol.params.reg))
+        dl, s = lhat - l, torch.clamp(g, min=0.0)
+        mu = sol._get_mu(du, l, dl, s, Q, q, G, g)
+        phi = sol._phi(l, s, q, G, g, mu, True)
+        fresh = torch.arange(B, device='cuda') % 3 != 1
+        inputs = (u, du, l, dl, s, mu, 0.9 * phi, x0, up, (Q, q, G, g, fresh),
+                  (1.1 * phi, sol._dphi(du, l, dl, s, Q, q, G, g, mu, True)))
+        call = lambda en, a: sol._line_search(en, *a[:9], None, eval0=a[9], ck_ref=a[10])
+    rows = lambda a, n: tree_map(lambda t: t[:n], a)
+    return sol, inputs, call, rows
+
+
+def _merit_counts():
+    c = profiling.snapshot()['counters'].get(0, {})
+    return tuple(c.get('merits.graph.' + k, 0) for k in ('eager', 'capture', 'replay',
+                                                         'signatures'))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['v1', 'approx'])
+def test_merit_grid_replay_matches_eager_to_the_bit(name, counted):
+    """v1's ``_grid_ls`` and v2's ``_line_search``: at a width the first call runs
+    eagerly, the second captures and replays, and every call from the third on replays;
+    each gives, bit for bit, what the grid gives eagerly on the same inputs (a solver's
+    fresh cache runs its first call eagerly), with other games enabled too; a narrower
+    batch captures a graph of its own."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU and nvcc')
+    sol, inputs, call, rows = _merit_grid(name)
+    B = inputs[0].shape[0]
+    en = torch.arange(B, device='cuda') % 4 != 0
+    other = torch.arange(B, device='cuda') % 3 == 0
+
+    def eager(enabled, a):
+        cache, sol._merit_graphs = sol._merit_graphs, cuda_graphs.GraphCache('eager')
+        try:
+            return call(enabled, a)
+        finally:
+            sol._merit_graphs = cache
+    outs = [call(en, inputs) for _ in range(4)]
+    assert _merit_counts() == (1, 1, 2, 1)
+    assert all(_equal(o, outs[0]) for o in outs[1:])
+    assert _equal(call(other, inputs), eager(other, inputs))
+    assert not _equal(eager(other, inputs), outs[0])
+    small = rows(inputs, B // 2)
+    narrow = [call(en[:B // 2], small) for _ in range(3)]
+    assert _merit_counts() == (2, 2, 4, 2)
+    assert all(_equal(o, eager(en[:B // 2], small)) for o in narrow)
+    assert len(sol._merit_graphs._entries) == 2

@@ -49,6 +49,7 @@ def test_tracing_off_records_nothing():
         profiling.count('n', 3)
         assert profiling.read_bool(torch.tensor([False, True]).any(), 'site') is True
         assert profiling.read_numpy(torch.arange(3), 'site').tolist() == [0, 1, 2]
+        profiling.count_true('n', torch.tensor([True, False, True]), 'site')
     assert profiling.traced('f', 'calls')(lambda x: x + 1)(1) == 2
     assert profiling.snapshot() == dict(spans=[], counters={})
 
@@ -107,14 +108,15 @@ def _paths(spans):
 
 ROUND = ['solve > chunk > round > ' + p for p in
          ('evaluate', 'qp', 'qp > qp.convexify', 'qp > qp.ipm', 'qp > qp.ipm > sync',
-          'qp > qp.polish', 'merit')]
+          'qp > qp.polish')]
 SOLVES = {
     # name: (solver, solve_batch_chunked's keywords, spans beside the round's)
     'v1_fixed': ('v1', dict(chunk_iters=1, max_chunks=2, compact=False),
-                 ['solve > chunk > sync']),
+                 ['solve > chunk > sync', 'solve > chunk > round > merit']),
     'v1_compacting': ('v1', dict(chunk_iters=1, max_chunks=2, compact=True),
                       ['solve > chunk > sync', 'solve > chunk > chunk.compact',
-                       'solve > chunk > chunk.compact > sync']),
+                       'solve > chunk > chunk.compact > sync',
+                       'solve > chunk > round > merit']),
     'v2': ('v2', dict(chunk_iters=2, max_chunks=2),
            ['solve > chunk > round > trial', 'solve > chunk > round > trial > sync']),
 }
@@ -170,6 +172,12 @@ def test_solver_spans_and_counters(bench, case, monkeypatch):
         == c['evaluates.ad.hessian'] + c['evaluates.ad.first']
     assert c['evaluates.ad.hessian'] == c['rounds']
     assert c['evaluates.graph.eager'] == c['evaluates']     # no graph on the CPU
+    # v1 searches in every round, v2 in the rounds where a game takes an m-step; the
+    # grid reads nothing but its traced count, eagerly
+    assert n('merit') == (c['rounds'] if name == 'v1' else c.get('trials', 0))
+    assert 'host_syncs.merit.select' not in c
+    assert c.get('merits.graph.eager', 0) == n('merit') == c.get('host_syncs.merit.games', 0)
+    assert 'merits.graph.capture' not in c and 'merits.graph.replay' not in c
     assert c.get('compactions', 0) == n('chunk.compact') == (case == 'v1_compacting')
 
 
@@ -238,10 +246,15 @@ def test_v2_trial_and_merit_counters_follow_the_rounds(approx, monkeypatch):
     assert want['trials'] > 0 and 0 < want['merit_games'] < want['trial_games']
     assert want['trial_games'] < BATCH * len(seen)     # not every game in every trial
     assert {k: c[k] for k in want} == want
-    assert c['merit_points'] == p.line_search_iters * want['merit_games']
+    # the grid runs in each round with a trial, at the batch's full width, which nothing
+    # compacts here, and reads only the count of its games
+    assert c['merit_points'] == p.line_search_iters * BATCH * want['trials']
     n = lambda key: sum(s['name'] == key for s in snap['spans'])
     assert n('trial') == n('round') == c['rounds'] == len(seen)
-    assert c['host_syncs.trial.select'] == c['host_syncs.merit.select'] == c['rounds']
+    assert c['host_syncs.trial.select'] == c['rounds']
+    assert c['host_syncs.merit.games'] == n('merit') == c['merits.graph.eager'] \
+        == want['trials']
+    assert c.get('host_syncs.merit.select', 0) == 0
 
 
 # ------------------------------------------------------- evaluate's CUDA graphs
